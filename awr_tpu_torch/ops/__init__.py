@@ -1,1 +1,2 @@
-"""The AWR decode: plain PyTorch version, CUDA kernel wrapper, dispatch."""
+"""The AWR encode, decode and loss: plain PyTorch versions, CUDA kernel
+wrappers, dispatch."""

@@ -1,9 +1,11 @@
-"""Wrapper of the hand-written CUDA decode kernel (``csrc/decode.cu``).
+"""Wrappers of the hand-written CUDA decode kernels (``csrc/decode.cu``):
+the forward and its backward.
 
-The kernel's library is built and loaded at the first call
+The kernels' library is built and loaded at the first call
 (:mod:`awr_tpu_torch.kernels`), so this module imports without a GPU or
-``nvcc``.  Its plain version is
-:func:`awr_tpu_torch.ops.functional.offset2joint_softmax`.
+``nvcc``.  Their plain versions are
+:func:`awr_tpu_torch.ops.functional.offset2joint_softmax` and
+:func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_backward`.
 """
 
 from __future__ import annotations
@@ -15,16 +17,16 @@ import torch
 
 from awr_tpu_torch import kernels
 
-# Kernel launches made by this wrapper since the count was last reset.
+# Kernel launches made by each wrapper since its count was last reset.
 LAUNCHES = 0
+BACKWARD_LAUNCHES = 0
 
-_LAUNCHERS = {torch.float32: "awr_decode_f32",
-              torch.bfloat16: "awr_decode_bf16"}
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(dtype):
-    fn = getattr(kernels.load("decode"), _LAUNCHERS[dtype])
+    fn = getattr(kernels.load("decode"), f"awr_decode_{_DTYPES[dtype]}")
     # offset, img, out, B, J, F, H, W, kernel_size, stream
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
@@ -32,12 +34,19 @@ def _launcher(dtype):
     return fn
 
 
-def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
-                              kernel_size: float) -> torch.Tensor:
-    """(B, 4J, F, F) float32/bfloat16 map + (B, H, W) float32 depth, both
-    contiguous on one CUDA device -> (B, J, 3) float32 joints."""
-    global LAUNCHES
-    if offset.dtype not in _LAUNCHERS or img.dtype != torch.float32:
+@functools.lru_cache(maxsize=None)
+def _backward_launcher(dtype):
+    fn = getattr(kernels.load("decode"),
+                 f"awr_decode_backward_{_DTYPES[dtype]}")
+    # offset, img, out, grad_out, grad, B, J, F, H, W, kernel_size, stream
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_inputs(offset: torch.Tensor, img: torch.Tensor) -> None:
+    if offset.dtype not in _DTYPES or img.dtype != torch.float32:
         raise TypeError(f"decode kernel takes a float32 or bfloat16 map "
                         f"and float32 depth, got {offset.dtype} and "
                         f"{img.dtype}")
@@ -52,16 +61,62 @@ def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
     if offset.device.type != "cuda" or img.device != offset.device:
         raise ValueError(f"decode kernel needs both tensors on one CUDA "
                          f"device, got {offset.device} and {img.device}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
+                              kernel_size: float) -> torch.Tensor:
+    """(B, 4J, F, F) float32/bfloat16 map + (B, H, W) float32 depth, both
+    contiguous on one CUDA device -> (B, J, 3) float32 joints."""
+    global LAUNCHES
+    _check_inputs(offset, img)
     B, C, F, _ = offset.shape
     J = C // 4
     H, W = img.shape[1:]
     out = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
     launch = _launcher(offset.dtype)
     with torch.cuda.device(offset.device):
-        stream = torch.cuda.current_stream(offset.device).cuda_stream
         err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
-                     B, J, F, H, W, float(kernel_size), stream)
+                     B, J, F, H, W, float(kernel_size),
+                     _stream(offset.device))
     if err != 0:
         raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out
+
+
+def offset2joint_softmax_backward_cuda(offset: torch.Tensor,
+                                       img: torch.Tensor, out: torch.Tensor,
+                                       grad_out: torch.Tensor,
+                                       kernel_size: float) -> torch.Tensor:
+    """Gradient of the decode with respect to the map: the forward's
+    inputs, its (B, J, 3) float32 output ``out`` and the cotangent
+    ``grad_out`` (B, J, 3) float32, all contiguous on one CUDA device ->
+    (B, 4J, F, F) in the map's dtype."""
+    global BACKWARD_LAUNCHES
+    _check_inputs(offset, img)
+    B, C, F, _ = offset.shape
+    J = C // 4
+    H, W = img.shape[1:]
+    for name, t in (("out", out), ("grad_out", grad_out)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, J, 3):
+            raise ValueError(f"decode backward takes a float32 {name} of "
+                             f"shape {(B, J, 3)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous() or t.device != offset.device:
+            raise ValueError(f"decode backward takes a contiguous {name} "
+                             f"on {offset.device}")
+    grad = torch.empty_like(offset)
+    launch = _backward_launcher(offset.dtype)
+    with torch.cuda.device(offset.device):
+        err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
+                     grad_out.data_ptr(), grad.data_ptr(), B, J, F, H, W,
+                     float(kernel_size), _stream(offset.device))
+    if err != 0:
+        raise RuntimeError(f"decode backward kernel launch failed: CUDA "
+                           f"error {err}")
+    BACKWARD_LAUNCHES += 1
+    return grad

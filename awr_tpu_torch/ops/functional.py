@@ -1,9 +1,10 @@
-"""The AWR adaptive weighted decode in plain PyTorch.
+"""The AWR encode, decode and decode backward in plain PyTorch.
 
-This is the definition the CUDA kernel (``csrc/decode.cu``) is held to,
-and what a CPU tensor runs.  Maps are NCHW: (B, 4J, F, F) with channel
-order [j0x, j0y, j0d, j1x, ..., ht_j0 ... ht_jJ-1] (reference
-feature_tool.py:41-65), the JAX package's NHWC map transposed.
+These are the definitions the CUDA kernels (``csrc/encode.cu``,
+``csrc/decode.cu``) are held to, and what a CPU tensor runs.  Maps are
+NCHW: (B, 4J, F, F) with channel order [j0x, j0y, j0d, j1x, ..., ht_j0
+... ht_jJ-1] (reference feature_tool.py:12-65), the JAX package's NHWC
+map transposed.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import torch
 FG_THRESHOLD = 0.99
 # Softmax temperature over the closeness heatmap (reference feature_tool.py:60).
 SOFTMAX_TEMP = 30.0
+# Distance epsilon under the sqrt (reference feature_tool.py:31).
+DIS_EPS = 1e-8
 
 
 def resize_nearest(img: torch.Tensor, size: int) -> torch.Tensor:
@@ -79,3 +82,68 @@ def offset2joint_softmax(offset: torch.Tensor, img: torch.Tensor,
     term_vec = (vec.reshape(B, J, 3, P) * (w * dis)[:, :, None]).sum(-1)
     term_coord = torch.einsum("bjp,bpa->bja", w, coords)
     return term_vec + term_coord
+
+
+def joint2offset(jt_uvd: torch.Tensor, img: torch.Tensor,
+                 kernel_size: float, feature_size: int) -> torch.Tensor:
+    """GT dense field: (B, J, 3) normalized joints + (B, H, W) depth ->
+    (B, 4J, F, F) in the joints' dtype.
+
+    Per pixel and joint: ``off = joint - (x, y, depth)``, ``dis =
+    sqrt(|off|^2 + 1e-8)``, ``ht = (k - dis) / k``; both the unit offsets
+    (3J channels) and ``ht`` (J channels) are zeroed outside ``ht >= 0``
+    and the foreground.  ``(k - dis) / k`` is spelled as the reference
+    spells it: the mask tests the rounded value.
+    """
+    B, J, _ = jt_uvd.shape
+    F = feature_size
+    dtype = jt_uvd.dtype
+    img_f = resize_nearest(img, F).to(dtype)[:, None]  # (B, 1, F, F)
+    mesh_x, mesh_y = pixel_mesh(F, dtype, jt_uvd.device)
+    jt = jt_uvd[..., None, None]  # (B, J, 3, 1, 1)
+    dx = jt[:, :, 0] - mesh_x
+    dy = jt[:, :, 1] - mesh_y
+    dz = jt[:, :, 2] - img_f  # each (B, J, F, F)
+    dis = torch.sqrt(dx * dx + dy * dy + dz * dz + DIS_EPS)
+    ht = (kernel_size - dis) / kernel_size
+    mask = ((ht >= 0) & (img_f < FG_THRESHOLD)).to(dtype)
+    vec = torch.stack([dx / dis, dy / dis, dz / dis], dim=2) * mask[:, :, None]
+    return torch.cat([vec.reshape(B, 3 * J, F, F), ht * mask], dim=1)
+
+
+def offset2joint_softmax_backward(offset: torch.Tensor, img: torch.Tensor,
+                                  kernel_size: float,
+                                  grad_out: torch.Tensor) -> torch.Tensor:
+    """Gradient of :func:`offset2joint_softmax` with respect to ``offset``
+    for the cotangent ``grad_out`` (B, J, 3), in closed form; returned in
+    the map's dtype.  With m the foreground mask, h = H m, w =
+    softmax(30 h), dis = k - k h, v = V m, c = (x, y, depth) and
+    out = sum_p w (v dis + c):
+
+      dL/dV_p[a] = m g_a w_p dis_p
+      dL/dH_p    = m w_p (-k g.v_p + 30 (g.(v_p dis_p + c_p) - g.out))
+    """
+    B, C, F, _ = offset.shape
+    J = C // 4
+    P = F * F
+    dtype = torch.promote_types(offset.dtype, torch.float32)
+    img_f = resize_nearest(img, F).to(dtype).reshape(B, 1, 1, P)
+    mesh_x, mesh_y = pixel_mesh(F, dtype, offset.device)
+    coords = torch.cat([mesh_x.reshape(1, 1, 1, P).expand(B, 1, 1, P),
+                        mesh_y.reshape(1, 1, 1, P).expand(B, 1, 1, P),
+                        img_f], dim=2)  # (B, 1, 3, P)
+    mask = (img_f < FG_THRESHOLD).to(dtype)  # (B, 1, 1, P)
+    off = offset.to(dtype).reshape(B, C, P)
+    vec = off[:, :3 * J].reshape(B, J, 3, P) * mask
+    ht = off[:, 3 * J:] * mask[:, 0]  # (B, J, P)
+    w = torch.softmax(ht * SOFTMAX_TEMP, dim=-1)
+    dis = kernel_size - ht * kernel_size
+    g = grad_out.to(dtype)[..., None]  # (B, J, 3, 1)
+    term = vec * dis[:, :, None] + coords  # (B, J, 3, P)
+    g_term = (g * term).sum(2)  # (B, J, P)
+    g_out = (g_term * w).sum(-1, keepdim=True)  # g . out, (B, J, 1)
+    g_vec = g * (w * dis)[:, :, None] * mask
+    g_ht = mask[:, 0] * w * (-kernel_size * (g * vec).sum(2)
+                             + SOFTMAX_TEMP * (g_term - g_out))
+    grad = torch.cat([g_vec.reshape(B, 3 * J, P), g_ht], dim=1)
+    return grad.reshape(B, C, F, F).to(offset.dtype)

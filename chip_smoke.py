@@ -1,18 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's train, eval and serving paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernels from ``awr_tpu_torch/csrc``, holds
-each against its plain PyTorch version on the card, serves requests of
-raw depth frames with ``hourglass_1`` at full width (img 128, 256
-channels, 14 joints; seeded random weights) through
-``awr_tpu_torch.serving.Predictor``, checks that the requests went
-through the kernels and agree with the same Predictor on the CPU, and
-times them with CUDA events.  Each phase prints one JSON line; then
-come the kernel summary line, the card's name and power limit, and the
-status line.  Any failure raises and exits non-zero.  Without a GPU it
-exits 1 and prints no result.  Imports torch, numpy and the port only.
+Builds the hand-written CUDA kernels from ``awr_tpu_torch/csrc`` (one
+``nvcc`` per source, all at once) and holds each against its plain
+PyTorch version on the card.  Then, with ``hourglass_1`` at full width
+(img 128, 256 channels, 14 joints; seeded random weights), float32, TF32
+off:
+
+- train: K raw-mode Adam steps (device crop, augmentation drawn by a
+  seeded ``torch.Generator`` on the card, encode, forward, decode, loss,
+  backward, update) on 32 synthetic frames, between two un-augmented
+  eval steps on the same batch, whose loss must fall;
+- cross-device: one raw train step on the card and on the CPU from the
+  same weights and augmentation;
+- eval: one raw eval step;
+- serve: requests through ``awr_tpu_torch.serving.Predictor``, held
+  against the same Predictor on the CPU;
+- time: CUDA-event times of the train step, the inference step and each
+  kernel beside its plain version and its bound; then a
+  ``torch.profiler`` breakdown of the train step by kernel.
+
+Each path runs with every launch counter set to 0 just before it and is
+checked to have gone through its kernels.  Each phase prints one JSON
+line; then come the kernel summary line, the card's name and power
+limit, and the status line.  Any failure raises and exits non-zero.
+Without a GPU it exits 1 and prints no result.  Imports torch, numpy and
+the port only.
 """
 
 from __future__ import annotations
@@ -27,35 +43,69 @@ import torch
 
 from awr_tpu_torch import kernels
 from awr_tpu_torch.config import hourglass_config
-from awr_tpu_torch.data.device import crop_normalize_batch
+from awr_tpu_torch.data.device import (crop_normalize_batch,
+                                       crop_param_tensors,
+                                       draw_augment_params)
 from awr_tpu_torch.data.synthetic import synthetic_frames
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
-from awr_tpu_torch.ops import decode_cuda
-from awr_tpu_torch.ops.functional import offset2joint_softmax
+from awr_tpu_torch.ops import decode_cuda, encode_cuda
+from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
+                                          offset2joint_softmax_backward)
 from awr_tpu_torch.serving import Predictor
+from awr_tpu_torch.training.optim import make_optimizer
+from awr_tpu_torch.training.steps import (make_raw_eval_step,
+                                          make_raw_train_step)
 
 SEED = 0
 KERNEL_SIZE = 0.4
-# Each hand-written kernel on the path: its wrapper's launch counter, its
-# source and the TPU kernel it replaces.
-KERNELS = [dict(name="decode", route="cuda", module=decode_cuda,
-                source="awr_tpu_torch/csrc/decode.cu",
-                replaces="awr_tpu/ops/pallas_decode.py:69")]
+# Each hand-written kernel on the paths: its wrapper module and launch
+# counter, its source and the TPU kernel (or XLA function) it replaces.
+KERNELS = [
+    dict(name="decode", route="cuda", module=decode_cuda, counter="LAUNCHES",
+         source="awr_tpu_torch/csrc/decode.cu",
+         replaces="awr_tpu/ops/pallas_decode.py:69"),
+    dict(name="encode", route="cuda", module=encode_cuda, counter="LAUNCHES",
+         source="awr_tpu_torch/csrc/encode.cu",
+         replaces="awr_tpu/ops/pallas_encode.py:40"),
+    dict(name="decode_backward", route="cuda", module=decode_cuda,
+         counter="BACKWARD_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
+         replaces="awr_tpu/ops/decode.py:37"),
+]
+SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
 # float32 sums over F*F = 4096 pixels taken in another order than the
 # plain version's
 DECODE_ATOL = 2e-5
+# the encode spells each operation as the plain version does, in IEEE
+# float32 without contraction
+ENCODE_ATOL = 1e-5
+# relative to max |grad|: dL/dht is a difference of two softmax-weighted
+# sums over F*F pixels, each taken in another order than the plain
+# version's (expf against torch's exp, too); one float32 rounding of that
+# difference is ~1e-7 of max |grad|.  bfloat16: one bfloat16 rounding.
+BACKWARD_RTOL_OF_MAX = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # cuDNN against the CPU's conv algorithms, TF32 off, through a 4-level
 # hourglass
 CPU_ATOL = 1e-3
+# train step on the card against the CPU: cuDNN's backward algorithms sum
+# in other orders in float32
+CROSS_LOSS_RTOL = 1e-4
+CROSS_BN_ATOL = 1e-4
+CROSS_GRAD_COS = 0.999
+TRAIN_STEPS = 20
+TRAIN_BATCH = 32
+CROSS_BATCH = 4
 # (HBM bytes/s, float32 non-tensor FLOP/s) from NVIDIA's data sheets
 PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
          "H100": (3.35e12, 67e12)}
-# float operations of the decode for each (sample, joint, pixel): mask,
-# logit, max, exp, sum, distance, weight, three offset and three
-# coordinate products and sums
-DECODE_OPS = 25
+# float operations for each (sample, joint, pixel): decode (mask, logit,
+# max, exp, sum, distance, weight, three offset and three coordinate
+# products and sums); encode (three differences, squares and sums, sqrt,
+# heatmap, mask, three divides and four masked stores); decode backward
+# (the decode's two reduction passes again, then the weight, distance,
+# g.v, g.t and four gradient values)
+OPS = {"decode": 25, "encode": 20, "decode_backward": 45}
 
 
 def emit(obj) -> None:
@@ -126,9 +176,24 @@ def phase_env():
     return smi
 
 
+def counts():
+    return {k["name"]: getattr(k["module"], k["counter"]) for k in KERNELS}
+
+
+def reset_counts() -> None:
+    for k in KERNELS:
+        setattr(k["module"], k["counter"], 0)
+
+
+def check_launches(path: str, got: dict, want: dict) -> None:
+    if got != want:
+        raise AssertionError(f"{path}: kernel launches {got}, expected "
+                             f"{want}")
+
+
 def phase_build():
     t0 = time.perf_counter()
-    report = kernels.build([k["name"] for k in KERNELS])
+    report = kernels.build(SOURCES)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": r["seconds"],
                           "ptxas": [ln.strip() for ln in r["ptxas"].splitlines()
@@ -136,23 +201,201 @@ def phase_build():
                       for n, r in report.items()}})
 
 
+def encode_inputs(B, F=64, J=14, H=128, seed=SEED):
+    """:func:`decode_inputs`' depth and seeded (B, J, 3) joints."""
+    _, img = decode_inputs(B, F, J, H, seed)
+    rng = np.random.RandomState(seed + 1)
+    jt = rng.uniform(-0.8, 0.8, (B, J, 3)).astype(np.float32)
+    return torch.from_numpy(jt).cuda(), img
+
+
 def phase_kernels():
-    """The decode kernel against its plain version at the serving shape."""
+    """Each kernel against its plain version at the train and serving
+    shape (B = 32, F = 64, J = 14), synchronized after the launch."""
     off, img = decode_inputs(32)
     errs = {}
+    dec = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = off.to(dtype)
         got = decode_cuda.offset2joint_softmax_cuda(x, img, KERNEL_SIZE)
-        want = offset2joint_softmax(x.float(), img, KERNEL_SIZE)
         torch.cuda.synchronize()
-        errs[str(dtype).split(".")[1]] = float((got - want).abs().max())
+        want = offset2joint_softmax(x.float(), img, KERNEL_SIZE)
+        dec[str(dtype).split(".")[1]] = float((got - want).abs().max())
         if not torch.isfinite(got).all():
             raise AssertionError("decode kernel gave non-finite joints")
+    errs["decode"] = dec["float32"]
     emit({"phase": "kernels", "kernel": "decode", "shape": list(off.shape),
-          "max_abs_err": errs, "atol": DECODE_ATOL})
-    if max(errs.values()) > DECODE_ATOL:
-        raise AssertionError(f"decode kernel disagrees: {errs}")
-    return errs["float32"]
+          "max_abs_err": dec, "atol": DECODE_ATOL})
+    if max(dec.values()) > DECODE_ATOL:
+        raise AssertionError(f"decode kernel disagrees: {dec}")
+
+    jt, img = encode_inputs(32)
+    got = encode_cuda.joint2offset_cuda(jt, img, KERNEL_SIZE, 64)
+    torch.cuda.synchronize()
+    want = joint2offset(jt, img, KERNEL_SIZE, 64)
+    errs["encode"] = float((got - want).abs().max())
+    emit({"phase": "kernels", "kernel": "encode", "shape": list(got.shape),
+          "max_abs_err": errs["encode"], "atol": ENCODE_ATOL,
+          "nonzero_share": float((want != 0).float().mean()),
+          "pixels_differing": int((got != want).sum())})
+    if not errs["encode"] <= ENCODE_ATOL:
+        raise AssertionError(f"encode kernel disagrees: {errs['encode']}")
+
+    g = torch.randn(32, 14, 3, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(SEED))
+    bwd = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = off.to(dtype)
+        out = decode_cuda.offset2joint_softmax_cuda(x, img, KERNEL_SIZE)
+        got = decode_cuda.offset2joint_softmax_backward_cuda(
+            x, img, out, g, KERNEL_SIZE)
+        torch.cuda.synchronize()
+        want = offset2joint_softmax_backward(x, img, KERNEL_SIZE, g).float()
+        name = str(dtype).split(".")[1]
+        scale = float(want.abs().max())
+        bwd[name] = {"max_abs_err": float((got.float() - want).abs().max()),
+                     "max_abs_grad": scale,
+                     "atol": BACKWARD_RTOL_OF_MAX[name] * scale}
+        if not bwd[name]["max_abs_err"] <= bwd[name]["atol"]:
+            raise AssertionError(f"decode backward disagrees: {bwd}")
+        if got[0].any():
+            raise AssertionError("decode backward: background frame not 0")
+    errs["decode_backward"] = bwd["float32"]["max_abs_err"]
+    emit({"phase": "kernels", "kernel": "decode_backward",
+          "shape": list(off.shape), "errors": bwd})
+    return errs
+
+
+def raw_inputs(cfg, frames, joints, centers, device):
+    """The raw-mode step's inputs on ``device``: frames, absolute joints,
+    centers in uvd and cubes, and the crop parameters."""
+    B = len(frames)
+    centers_uvd = xyz2uvd_np(centers, cfg.paras, cfg.flip).astype(np.float64)
+    cubes = np.tile(np.asarray(cfg.cube, np.float64), (B, 1))
+    f32 = lambda a: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(device)
+    raw = dict(img=f32(frames), jt_xyz=f32(joints),
+               centers_uvd=f32(centers_uvd), cubes=f32(cubes))
+    return raw, crop_param_tensors(centers_uvd, cubes, cfg.paras,
+                                   cfg.img_size, device)
+
+
+def new_model(cfg, device):
+    model = build_model(cfg.net, cfg.jt_num)
+    torch_default_init_(model, torch.Generator().manual_seed(SEED))
+    return model.to(device)
+
+
+def phase_train(cfg, frames, joints, centers):
+    """K raw train steps at B = 32 between two eval steps on the batch."""
+    model = new_model(cfg, "cuda")
+    opt = make_optimizer(model.parameters(), cfg.optimizer, cfg.lr)
+    train = make_raw_train_step(model, opt, cfg, cfg.paras, cfg.flip)
+    evaluate = make_raw_eval_step(model, cfg, cfg.paras, cfg.flip)
+    raw, p = raw_inputs(cfg, frames, joints, centers, "cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    B = len(frames)
+
+    reset_counts()
+    before = evaluate(raw, p)
+    metrics = [train(raw, p, draw_augment_params(gen, B, *cfg.augment_para))
+               for _ in range(TRAIN_STEPS)]
+    after = evaluate(raw, p)
+    torch.cuda.synchronize()
+    launches = counts()
+
+    losses = [float(m["loss"]) for m in metrics]
+    eval_loss = (float(before["loss"]), float(after["loss"]))
+    emit({"phase": "train", "net": cfg.net, "batch": B, "steps": TRAIN_STEPS,
+          "optimizer": cfg.optimizer, "lr": cfg.lr,
+          "coord_weight": cfg.coord_weight, "launches": launches,
+          "loss_first": losses[0], "loss_last": losses[-1],
+          "loss_coord_last": float(metrics[-1]["loss_coord"]),
+          "eval_loss_before": eval_loss[0], "eval_loss_after": eval_loss[1]})
+    check_launches("train", launches, {
+        "decode": TRAIN_STEPS + 2, "encode": TRAIN_STEPS + 2,
+        "decode_backward": TRAIN_STEPS})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if not eval_loss[1] < eval_loss[0]:
+        raise AssertionError(f"eval loss did not fall: {eval_loss}")
+    return model, opt, train, raw, p, launches
+
+
+def zero_grad_biases(model) -> set:
+    """Conv biases whose gradient is 0 in exact arithmetic: every conv
+    output but the two prediction heads' reaches the loss only through
+    train-mode BatchNorms (skips, pooling and upsampling carry a channel
+    constant on; each BatchNorm subtracts it), so what is left of their
+    gradient is roundoff, whose direction means nothing."""
+    return {f"{n}.bias" for n, m in model.named_modules()
+            if isinstance(m, torch.nn.Conv2d) and m.bias is not None
+            and not n.startswith(("outs_1.", "outs_2."))}
+
+
+def phase_cross_device(cfg, frames, joints, centers):
+    """One raw train step at B = 4 on the card and on the CPU, from the
+    same weights and the same augmentation."""
+    sd = new_model(cfg, "cpu").state_dict()
+    B = CROSS_BATCH
+    aug = draw_augment_params(torch.Generator().manual_seed(SEED + 1), B,
+                              *cfg.augment_para)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg.net, cfg.jt_num)
+        model.load_state_dict(sd)
+        model.to(dev)
+        step = make_raw_train_step(
+            model, make_optimizer(model.parameters(), cfg.optimizer, cfg.lr),
+            cfg, cfg.paras, cfg.flip)
+        raw, p = raw_inputs(cfg, frames[:B], joints[:B], centers[:B], dev)
+        m = step(raw, p, tuple(a.to(dev) for a in aug))
+        out[dev] = dict(
+            loss=float(m["loss"]),
+            grads={n: q.grad.detach().double().cpu()
+                   for n, q in model.named_parameters()},
+            stats={n: b.detach().double().cpu()
+                   for n, b in model.named_buffers() if "running" in n})
+    gpu, cpu = out["cuda"], out["cpu"]
+    loss_rel = abs(gpu["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    bn_err = max(float((gpu["stats"][n] - cpu["stats"][n]).abs().max())
+                 for n in cpu["stats"])
+    zero = zero_grad_biases(model)
+    cosines = {n: float((gpu["grads"][n] * g).sum()
+                        / (gpu["grads"][n].norm() * g.norm()))
+               for n, g in cpu["grads"].items() if n not in zero}
+    worst = sorted(cosines, key=cosines.get)[:5]
+    emit({"phase": "cross_device", "batch": B, "loss_cuda": gpu["loss"],
+          "loss_cpu": cpu["loss"], "loss_rel_err": loss_rel,
+          "bn_stats_max_abs_err": bn_err,
+          "grad_cos_lowest": {n: cosines[n] for n in worst},
+          "params_compared": len(cosines),
+          "zero_grad_biases_skipped": len(zero),
+          "zero_grad_bias_grad_max": max(float(cpu["grads"][n].abs().max())
+                                         for n in zero),
+          "tolerances": {"loss_rtol": CROSS_LOSS_RTOL,
+                         "bn_atol": CROSS_BN_ATOL,
+                         "grad_cos": CROSS_GRAD_COS}})
+    if not (loss_rel <= CROSS_LOSS_RTOL and bn_err <= CROSS_BN_ATOL
+            and cosines[worst[0]] >= CROSS_GRAD_COS):
+        raise AssertionError("the train step on the card disagrees with "
+                             "the CPU")
+
+
+def phase_eval(cfg, model, raw, p):
+    evaluate = make_raw_eval_step(model, cfg, cfg.paras, cfg.flip)
+    reset_counts()
+    m = evaluate(raw, p)
+    torch.cuda.synchronize()
+    launches = counts()
+    emit({"phase": "eval", "batch": raw["img"].shape[0], "launches": launches,
+          "loss": float(m["loss"]),
+          "jt_uvd_pred_finite": bool(torch.isfinite(m["jt_uvd_pred"]).all())})
+    check_launches("eval", launches,
+                   {"decode": 1, "encode": 1, "decode_backward": 0})
+    if not torch.isfinite(m["jt_uvd_pred"]).all():
+        raise AssertionError("eval: non-finite joints")
+    return launches
 
 
 def randomize_batch_norm_(model, seed=SEED):
@@ -175,16 +418,15 @@ def phase_serve(cfg, frames, centers):
     torch_default_init_(model, torch.Generator().manual_seed(SEED))
     pred = Predictor(cfg, randomize_batch_norm_(model), device="cuda")
 
-    for k in KERNELS:
-        k["module"].LAUNCHES = 0
+    reset_counts()
     outs = {B: pred.predict(frames[:B], centers[:B]) for B in (1, 8, 32)}
-    launches = {k["name"]: k["module"].LAUNCHES for k in KERNELS}
+    launches = counts()
     for B, out in outs.items():
         if out.shape != (B, cfg.jt_num, 3) or not np.isfinite(out).all():
             raise AssertionError(f"batch {B}: bad output {out.shape}")
-    if launches["decode"] != len(outs):
-        raise AssertionError(f"decode kernel launched {launches['decode']} "
-                             f"times for {len(outs)} requests")
+    # inference mode: one decode launch a request, no backward, no encode
+    check_launches("serve", launches,
+                   {"decode": len(outs), "encode": 0, "decode_backward": 0})
 
     # the same Predictor's weights on the CPU, on a batch of 2
     cpu = Predictor(cfg, pred.model.state_dict(), device="cpu")
@@ -209,7 +451,19 @@ def phase_serve(cfg, frames, centers):
     return pred, launches
 
 
-def phase_time(cfg, pred, frames, centers, bw, flops):
+def kernel_times(fn, plain, make_args, nbytes, ops, bw, flops):
+    """The kernel's and its plain version's device ms on L2-cold copies
+    of the inputs, and the bound for the same work."""
+    copies = max(2, -(-200_000_000 // nbytes))
+    sets = [make_args() for _ in range(copies)]
+    t_bytes, t_ops = nbytes / bw, ops / flops
+    return {"ms": device_ms(fn, sets, 50), "plain_ms": device_ms(plain, sets, 20),
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
     out = {"phase": "time"}
     for B in (1, 32, 256):
         f = np.resize(frames, (B,) + frames.shape[1:])
@@ -221,27 +475,85 @@ def phase_time(cfg, pred, frames, centers, bw, flops):
     for B in (8, 32, 256):
         img = torch.rand(B, cfg.img_size, cfg.img_size, device="cuda") * 2 - 1
         out[f"infer_ms_b{B}"] = device_ms(pred._infer, [(img,)], 10)
+    # device time of the raw train step at B = 32, one fixed augmentation
+    B = raw["img"].shape[0]
+    aug = draw_augment_params(torch.Generator("cuda").manual_seed(SEED + 2),
+                              B, *cfg.augment_para)
+    out[f"train_step_ms_b{B}"] = device_ms(train, [(raw, p, aug)], 10)
+    out[f"train_fps_b{B}"] = B / out[f"train_step_ms_b{B}"] * 1e3
 
-    decode = {}
+    res = {}
+    F, J = cfg.feature_size, cfg.jt_num
     for B in (32, 256):
+        def dec_args():
+            off, img = decode_inputs(B)
+            return off, img, KERNEL_SIZE
+        res[("decode", B)] = kernel_times(
+            decode_cuda.offset2joint_softmax_cuda, offset2joint_softmax,
+            dec_args, B * 4 * J * F * F * 4 + B * F * F * 4 + B * J * 3 * 4,
+            B * J * F * F * OPS["decode"], bw, flops)
+    B = 32
+
+    def enc_args():
+        jt, img = encode_inputs(B)
+        return jt, img, KERNEL_SIZE, F
+    res[("encode", B)] = kernel_times(
+        encode_cuda.joint2offset_cuda, joint2offset, enc_args,
+        B * J * 3 * 4 + B * F * F * 4 + B * 4 * J * F * F * 4,
+        B * J * F * F * OPS["encode"], bw, flops)
+
+    def bwd_args():
         off, img = decode_inputs(B)
-        C, F = off.shape[1], off.shape[2]
-        nbytes = off.numel() * 4 + B * F * F * 4 + B * (C // 4) * 3 * 4
-        copies = max(2, -(-200_000_000 // nbytes))
-        sets = [(off.clone(), img.clone(), KERNEL_SIZE) for _ in range(copies)]
-        ops = B * (C // 4) * F * F * DECODE_OPS
-        decode[B] = {
-            "ms": device_ms(decode_cuda.offset2joint_softmax_cuda, sets, 50),
-            "plain_ms": device_ms(offset2joint_softmax, sets, 20),
-            "bound_ms": max(nbytes / bw, ops / flops) * 1e3,
-            "bound_by": "bytes" if nbytes / bw >= ops / flops else "operations",
-            "bytes": nbytes, "ops": ops}
-        del sets
-        out[f"decode_b{B}"] = decode[B]
-    out["decode_library_ms"] = None
-    out["decode_library_note"] = "no single PyTorch call computes this decode"
+        out = decode_cuda.offset2joint_softmax_cuda(off, img, KERNEL_SIZE)
+        g = torch.randn_like(out)
+        return off, img, out, g, KERNEL_SIZE
+
+    def bwd_plain(off, img, out, g, k):
+        return offset2joint_softmax_backward(off, img, k, g)
+    res[("decode_backward", B)] = kernel_times(
+        decode_cuda.offset2joint_softmax_backward_cuda, bwd_plain, bwd_args,
+        2 * B * 4 * J * F * F * 4 + B * F * F * 4 + 2 * B * J * 3 * 4,
+        B * J * F * F * OPS["decode_backward"], bw, flops)
+    for (name, b), r in res.items():
+        out[f"{name}_b{b}"] = r
+    kernel_ms = sum(res[(k, 32)]["ms"] for k in ("decode", "encode",
+                                                   "decode_backward"))
+    out["kernels_share_of_train_step"] = kernel_ms / out["train_step_ms_b32"]
+    out["library_ms"] = None
+    out["library_note"] = ("no single PyTorch call computes the decode, "
+                           "the encode or the decode backward")
     emit(out)
-    return decode
+    return {name: r for (name, b), r in res.items() if b == 32}
+
+
+def phase_profile(train, args, steps=3):
+    """Device time of the raw train step by kernel (``torch.profiler``),
+    summed over ``steps`` steps, and the device's busy share of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    train(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train(*args)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side events only: an aten op's own device time would count
+    # its kernels a second time
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy_ms = sum(ms for _, ms in rows)
+    rows.sort(key=lambda r: -r[1])
+    emit({"phase": "profile", "steps": steps, "wall_ms_per_step":
+          wall_ms / steps, "device_ms_per_step": busy_ms / steps,
+          "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+          "kernels_by_device_ms": [
+              {"name": name[:90], "ms_per_step": ms / steps,
+               "share": ms / busy_ms} for name, ms in rows[:25]]})
 
 
 def main() -> int:
@@ -252,20 +564,31 @@ def main() -> int:
     smi = phase_env()
     bw, flops = peaks(torch.cuda.get_device_name(0))
     phase_build()
-    err = phase_kernels()
+    errs = phase_kernels()
 
-    cfg = hourglass_config()
-    frames, _, centers = synthetic_frames(32, cfg.jt_num, seed=SEED)
-    pred, launches = phase_serve(cfg, frames, centers)
-    decode = phase_time(cfg, pred, frames, centers, bw, flops)
+    cfg = hourglass_config(coord_weight=0.1)
+    frames, joints, centers = synthetic_frames(TRAIN_BATCH, cfg.jt_num,
+                                               seed=SEED)
+    launches = {}
+    model, _, train, raw, p, launches["train"] = phase_train(
+        cfg, frames, joints, centers)
+    phase_cross_device(cfg, frames, joints, centers)
+    launches["eval"] = phase_eval(cfg, model, raw, p)
+    pred, launches["serve"] = phase_serve(cfg, frames, centers)
+    times = phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p)
+    phase_profile(train, (raw, p, draw_augment_params(
+        torch.Generator("cuda").manual_seed(SEED + 3), TRAIN_BATCH,
+        *cfg.augment_para)))
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],
-         "replaces": k["replaces"], "launches": launches[k["name"]],
-         "max_abs_err": err, "ms": decode[32]["ms"],
-         "plain_ms": decode[32]["plain_ms"],
-         "bound_ms": decode[32]["bound_ms"],
-         "bound_by": decode[32]["bound_by"], "library_ms": None}
+         "replaces": k["replaces"], "launches": launches["train"][k["name"]],
+         "launches_by_path": {path: n[k["name"]]
+                              for path, n in launches.items()},
+         "max_abs_err": errs[k["name"]], "ms": times[k["name"]]["ms"],
+         "plain_ms": times[k["name"]]["plain_ms"],
+         "bound_ms": times[k["name"]]["bound_ms"],
+         "bound_by": times[k["name"]]["bound_by"], "library_ms": None}
         for k in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,7 @@
-"""The port's decode, resize and preprocessing against the JAX package,
-on seeded numpy inputs fed to both sides."""
+"""The port's encode, decode, decode backward, resize and preprocessing
+against the JAX package, on seeded numpy inputs fed to both sides."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,17 +13,22 @@ from awr_tpu.data.synthetic import render_hand_depth as jax_render
 from awr_tpu.data.transforms import crop_params_np as jax_crop_params
 from awr_tpu.geometry import uvd2xyz_np as jax_uvd2xyz
 from awr_tpu.geometry import xyz2uvd_np as jax_xyz2uvd
+from awr_tpu.ops import joint2offset as jax_encode
 from awr_tpu.ops import offset2joint_softmax as jax_decode
 from awr_tpu.ops.functional import resize_nearest as jax_resize
 from awr_tpu.ops.pallas_decode import decode_pallas
+from awr_tpu.ops.pallas_encode import encode_pallas
 from awr_tpu_torch.config import NYU_PARAS
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.data.synthetic import render_hand_depth, synthetic_frames
 from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
-from awr_tpu_torch.ops import decode_cuda
+from awr_tpu_torch.ops import decode, decode_cuda, encode_cuda
 from awr_tpu_torch.ops.decode import decode_offsets
-from awr_tpu_torch.ops.functional import offset2joint_softmax, resize_nearest
+from awr_tpu_torch.ops.encode import encode_offsets
+from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
+                                          offset2joint_softmax_backward,
+                                          resize_nearest)
 
 J = 14
 KERNEL = 0.4
@@ -107,6 +113,153 @@ def test_kernel_wrapper_refuses(offset, img, error, match):
     with pytest.raises(error, match=match):
         decode_cuda.offset2joint_softmax_cuda(offset, img, KERNEL)
     assert decode_cuda.LAUNCHES == before
+
+
+def encode_inputs(F, frame, seed=0):
+    """Joints in [-0.8, 0.8] and the decode's (2, 2F, 2F) frames."""
+    _, img = decode_inputs(F, frame, seed)
+    jt = np.random.RandomState(seed + 100).uniform(-0.8, 0.8, (2, J, 3))
+    return jt.astype(np.float32), img
+
+
+def port_encode(jt, img, F):
+    out = joint2offset(torch.from_numpy(jt), torch.from_numpy(img), KERNEL, F)
+    return out.numpy().transpose(0, 2, 3, 1)  # NHWC, as the JAX package's
+
+
+@pytest.mark.parametrize("frame", ["mixed", "background", "foreground"])
+@pytest.mark.parametrize("F", [8, 16])
+def test_encode_matches_jnp(F, frame):
+    jt, img = encode_inputs(F, frame)
+    want = np.asarray(jax_encode(jnp.asarray(jt), jnp.asarray(img), KERNEL, F))
+    got = port_encode(jt, img, F)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert (np.count_nonzero(got) > 0) == (frame != "background")
+
+
+@pytest.mark.parametrize("frame", ["mixed", "background", "foreground"])
+@pytest.mark.parametrize("F", [8, 16])
+def test_encode_matches_pallas_interpret(F, frame):
+    jt, img = encode_inputs(F, frame, seed=1)
+    want = np.asarray(encode_pallas(jnp.asarray(jt), jnp.asarray(img), KERNEL,
+                                    F, interpret=True))
+    np.testing.assert_allclose(port_encode(jt, img, F), want, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_encode_dispatch_runs_plain_on_cpu():
+    jt, img = encode_inputs(8, "mixed")
+    jt_t = torch.from_numpy(jt).requires_grad_()
+    before = encode_cuda.LAUNCHES
+    got = encode_offsets(jt_t, torch.from_numpy(img), KERNEL, 8)
+    assert encode_cuda.LAUNCHES == before
+    assert not got.requires_grad  # a target: no gradient, as stop_gradient
+    np.testing.assert_array_equal(got.numpy().transpose(0, 2, 3, 1),
+                                  port_encode(jt, img, 8))
+
+
+@pytest.mark.parametrize("jt,img,error,match", [
+    (torch.zeros(2, J, 3), torch.zeros(2, 16, 16), ValueError, "CUDA"),
+    (torch.zeros(2, J, 3, dtype=torch.float64), torch.zeros(2, 16, 16),
+     TypeError, "float32"),
+    (torch.zeros(2, J, 3), torch.zeros(2, 16, 16).half(), TypeError,
+     "float32"),
+    (torch.zeros(2, J, 2), torch.zeros(2, 16, 16), ValueError, "B, J, 3"),
+    (torch.zeros(2, J, 3), torch.zeros(3, 16, 16), ValueError, "B, J, 3"),
+    (torch.zeros(0, J, 3), torch.zeros(0, 16, 16), ValueError, "B, J, 3"),
+    (torch.zeros(2, 3, J).transpose(1, 2), torch.zeros(2, 16, 16),
+     ValueError, "contiguous"),
+])
+def test_encode_wrapper_refuses(jt, img, error, match):
+    before = encode_cuda.LAUNCHES
+    with pytest.raises(error, match=match):
+        encode_cuda.joint2offset_cuda(jt, img, KERNEL, 8)
+    assert encode_cuda.LAUNCHES == before
+
+
+def jax_decode_vjp(off_nhwc, img, g):
+    _, vjp = jax.vjp(lambda o: jax_decode(o, jnp.asarray(img), KERNEL),
+                     jnp.asarray(off_nhwc))
+    return np.asarray(vjp(jnp.asarray(g))[0]).transpose(0, 3, 1, 2)
+
+
+# float64: the closed form and autodiff agree to roundoff.  float32:
+# dL/dht_p carries 30 w_p (g.t_p - g.out), a difference of two sums over
+# F^2 pixels taken in other orders; one float32 rounding of g.out, times
+# 30 w_p, reaches a few float32 ulps of max |grad| (measured up to 1.4e-6
+# of max |grad|), so atol is stated relative to max |grad|: 4e-6 of it.
+BACKWARD_TOL = {np.float64: dict(rtol=1e-10, atol=1e-10),
+                np.float32: dict(rtol=1e-5, atol=4e-6)}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("frame", ["mixed", "background", "foreground"])
+@pytest.mark.parametrize("F", [8, 16])
+def test_decode_backward_matches_jax_vjp_and_autograd(F, frame, dtype):
+    off, img = decode_inputs(F, frame, seed=2)
+    off, img = off.astype(dtype), img.astype(dtype)
+    g = np.random.RandomState(F).randn(2, J, 3).astype(dtype)
+    with jax.enable_x64(dtype == np.float64):
+        want = jax_decode_vjp(off, img, g)
+    off_t = torch.from_numpy(np.ascontiguousarray(off.transpose(0, 3, 1, 2)))
+    img_t = torch.from_numpy(img)
+    got = offset2joint_softmax_backward(off_t, img_t, KERNEL,
+                                        torch.from_numpy(g)).numpy()
+    leaf = off_t.clone().requires_grad_()
+    offset2joint_softmax(leaf, img_t, KERNEL).backward(torch.from_numpy(g))
+    tol = dict(BACKWARD_TOL[dtype])
+    tol["atol"] *= max(np.abs(want).max(), 1.0)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got, want, **tol)
+    np.testing.assert_allclose(got, leaf.grad.numpy(), **tol)
+    if frame == "background":
+        assert not got.any()
+
+
+def test_decode_backward_bf16_map_gives_bf16_gradient():
+    off, img = decode_inputs(8, "mixed")
+    off_t = torch.from_numpy(
+        np.ascontiguousarray(off.transpose(0, 3, 1, 2))).bfloat16()
+    g = torch.randn(2, J, 3, generator=torch.Generator().manual_seed(0))
+    got = offset2joint_softmax_backward(off_t, torch.from_numpy(img), KERNEL, g)
+    want = offset2joint_softmax_backward(off_t.float(), torch.from_numpy(img),
+                                         KERNEL, g)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
+
+
+def test_decode_autograd_function_wiring(monkeypatch):
+    """The CUDA path's autograd.Function, with its two kernels replaced by
+    their plain versions so it runs here: the output has a grad_fn, the
+    backward goes through the backward kernel's wrapper once with the
+    forward's saved output, and the gradient is autograd's through the
+    plain forward.  (tests/test_torch_cuda.py runs the kernels.)"""
+    calls = []
+
+    def backward(offset, img, out, grad_out, k):
+        calls.append(out)
+        return offset2joint_softmax_backward(offset, img, k, grad_out)
+
+    monkeypatch.setattr(decode_cuda, "offset2joint_softmax_cuda",
+                        offset2joint_softmax)
+    monkeypatch.setattr(decode_cuda, "offset2joint_softmax_backward_cuda",
+                        backward)
+    off, img = decode_inputs(8, "mixed")
+    off_t = torch.from_numpy(np.ascontiguousarray(off.transpose(0, 3, 1, 2)))
+    img_t = torch.from_numpy(img)
+    g = torch.randn(2, J, 3, generator=torch.Generator().manual_seed(1))
+    leaf = off_t.clone().requires_grad_()
+    out = decode.DecodeCuda.apply(leaf, img_t, KERNEL)
+    assert out.grad_fn is not None
+    out.backward(g)
+    assert len(calls) == 1 and torch.equal(calls[0], out.detach())
+    ref = off_t.clone().requires_grad_()
+    offset2joint_softmax(ref, img_t, KERNEL).backward(g)
+    torch.testing.assert_close(leaf.grad, ref.grad, rtol=1e-5,
+                               atol=4e-6 * float(ref.grad.abs().max()))
+    with torch.inference_mode():
+        assert decode.DecodeCuda.apply(off_t, img_t, KERNEL).grad_fn is None
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("size", [5, 8, 16, 24])

@@ -38,3 +38,24 @@ def flax_variables(nstack, seed=0):
     params = walk(params, lambda t: "scale" in t, bn_params)
     stats = walk(stats, lambda t: "mean" in t, bn_stats)
     return model, {"params": params, "batch_stats": stats}
+
+
+def random_variables(nstack, seed=0):
+    """The JAX hourglass and variables with every parameter and running
+    mean N(0, 0.05^2) and every running var |N(0, 1)| + 0.5, the
+    distribution tests/test_train_dynamics_oracle.py gives the reference's
+    weights.  Its gradients stand well above the float noise floor, so
+    Adam's normalization does not turn roundoff into lr-sized updates.
+    Only the shapes of flax's init are taken (``eval_shape``)."""
+    model = jax_build_model(f"hourglass_{nstack}", 14)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, IMG, IMG, 1)), train=False))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        if jax.tree_util.keystr(path).endswith("['var']"):
+            return (np.abs(rng.randn(*leaf.shape)) + 0.5).astype(np.float32)
+        return (0.05 * rng.randn(*leaf.shape)).astype(np.float32)
+
+    return model, {k: jax.tree_util.tree_map_with_path(draw, dict(shapes[k]))
+                   for k in ("params", "batch_stats")}
