@@ -2,6 +2,7 @@
 
 Imports torch and numpy only.  Entry points run on CUDA unless the
 caller names another device; on a CUDA tensor the AWR encode, decode and
-decode backward are the hand-written kernels in ``csrc/encode.cu`` and
-``csrc/decode.cu``.
+decode backward, and the int8 GEMM and deconv of quantized serving, are
+the hand-written kernels in ``csrc/encode.cu``, ``csrc/decode.cu`` and
+``csrc/int8.cu``.
 """

@@ -121,6 +121,13 @@ class Config:
         return DATASET_FLIP.get(self.dataset, 1)
 
 
+def resnet_config(layers: int = 18, **kw) -> Config:
+    """Reference resnet recipe: kernel_size 1.0 (reference config.py:42)."""
+    kw.setdefault("kernel_size", 1.0)
+    kw.setdefault("exp_id", f"nyu_resnet{layers}")
+    return Config(net=f"resnet_{layers}", **kw)
+
+
 def hourglass_config(nstack: int = 1, **kw) -> Config:
     kw.setdefault("kernel_size", 0.4)
     return Config(net=f"hourglass_{nstack}", **kw)

@@ -1,17 +1,21 @@
-"""Backbones emitting dense (B, 4J, F, F) AWR maps, stacked per stage.
+"""Backbones emitting dense (B, 4J, F, F) AWR maps: the hourglass stacked
+per stage, (S, B, 4J, F, F); the ResNet-deconv unstacked.
 
 :func:`build_model` is the reference's net-string factory
-('hourglass_2', ...; reference train.py:51-57).
+('hourglass_2', 'resnet_18', ...; reference train.py:51-57).
 """
 
+from torch import nn
+
 from awr_tpu_torch.models.hourglass import PoseNet
+from awr_tpu_torch.models.resnet import get_deconv_net
 
 
-def build_model(net: str, joint_num: int, downsample: int = 2) -> PoseNet:
+def build_model(net: str, joint_num: int, downsample: int = 2) -> nn.Module:
     if net.startswith("hourglass"):
         if downsample != 2:
             raise ValueError("the hourglass has output stride 2")
         return PoseNet(nstack=int(net.split("_")[1]), joint_num=joint_num)
     if net.startswith("resnet"):
-        raise NotImplementedError("resnet backbone: later slice")
+        return get_deconv_net(int(net.split("_")[1]), joint_num, downsample)
     raise ValueError(f"unknown net {net!r}")

@@ -31,6 +31,12 @@ def max_pool() -> nn.MaxPool2d:
     return nn.MaxPool2d(2, 2)
 
 
+def max_pool_torch(kernel: int, stride: int, padding: int) -> nn.MaxPool2d:
+    """``MaxPool2d(kernel, stride, padding)``: the padding is -inf, as the
+    JAX package's ``max_pool_torch`` pads."""
+    return nn.MaxPool2d(kernel, stride, padding)
+
+
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """``nn.Upsample(scale_factor=2, mode='nearest')`` on NCHW."""
     return F.interpolate(x, scale_factor=2, mode="nearest")
@@ -38,12 +44,14 @@ def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
 
 def torch_default_init_(module: nn.Module,
                         generator: torch.Generator) -> nn.Module:
-    """Re-draw every conv with PyTorch's default rule from ``generator``:
-    weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in)) (kaiming-uniform,
-    a=sqrt(5)); BatchNorm to identity with fresh running stats."""
+    """Re-draw every conv and transposed conv with PyTorch's default rule
+    from ``generator``: weight and bias U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    (kaiming-uniform, a=sqrt(5)), ``fan_in = weight[0].numel()`` (out *
+    kh * kw for a transposed conv, as its own ``reset_parameters``
+    computes); BatchNorm to identity with fresh running stats."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 fan_in = m.weight[0].numel()
                 bound = 1.0 / math.sqrt(fan_in)
                 m.weight.uniform_(-bound, bound, generator=generator)

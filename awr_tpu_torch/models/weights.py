@@ -1,13 +1,17 @@
-"""Carry weights into the port's hourglass.
+"""Carry weights into the port's hourglass and ResNet-deconv.
 
 - :func:`load_flax_variables`: the JAX package's ``{"params",
   "batch_stats"}`` tree (nested dicts of arrays) -> the port's module;
   the inverse of the JAX package's reference-``.pth`` importer.
+- :func:`load_flax_quant`: the JAX package's int8 ``quant`` collection
+  (``{..: {"act_scale": ()}}``) -> the port's activation scales.
 - :func:`load_reference_state_dict`: a reference ``state_dict`` -> the
   port's module (the port's own key layout is the reference's).
 
 Layouts: a conv kernel (kh, kw, in, out) becomes a weight (out, in, kh,
-kw); BatchNorm ``scale``/``bias``/``mean``/``var`` become
+kw), and a flax ``transpose_kernel`` deconv kernel (kh, kw, out, in) the
+``ConvTranspose2d`` weight (in, out, kh, kw): both by the permutation
+(3, 2, 0, 1).  BatchNorm ``scale``/``bias``/``mean``/``var`` become
 ``weight``/``bias``/``running_mean``/``running_var``.
 """
 
@@ -18,6 +22,7 @@ import torch
 from torch import nn
 
 from awr_tpu_torch.models.hourglass import PoseNet, Residual
+from awr_tpu_torch.models.resnet import Bottleneck, ResNetDeconv
 
 
 def _residual(sd_pfx, path, has_skip):
@@ -62,6 +67,41 @@ def _posenet_layout(nstack):
                    (f"merge_features{i}", "Conv_0"))
 
 
+def _resnet_layout(model: ResNetDeconv):
+    """(kind, state_dict prefix, flax path) for every layer; "kernel" is
+    a conv or deconv without bias, "conv" one with a bias."""
+    yield "kernel", "pre.0", ("pre_conv",)
+    yield "bn", "pre.1", ("pre_bn",)
+    for stage in range(1, 5):
+        for i, block in enumerate(getattr(model, f"layer{stage}")):
+            pfx, dst = f"layer{stage}.{i}", (f"layer{stage}_{i}",)
+            for c in range(1, 4 if isinstance(block, Bottleneck) else 3):
+                yield "kernel", f"{pfx}.conv{c}", dst + (f"conv{c}",)
+                yield "bn", f"{pfx}.bn{c}", dst + (f"bn{c}",)
+            if block.downsample is not None:
+                yield "kernel", f"{pfx}.downsample.0", dst + ("downsample_conv",)
+                yield "bn", f"{pfx}.downsample.1", dst + ("downsample_bn",)
+    for i in range(len(model.deconv_layers) // 3):
+        yield "kernel", f"deconv_layers.{3 * i}", (f"deconv{i}",)
+        yield "bn", f"deconv_layers.{3 * i + 1}", (f"deconv_bn{i}",)
+    yield "conv", "final1", ("final1",)
+    yield "conv", "final2", ("final2",)
+
+
+def _layout(model: nn.Module):
+    if isinstance(model, PoseNet):
+        return _posenet_layout(model.nstack)
+    if isinstance(model, ResNetDeconv):
+        return _resnet_layout(model)
+    raise TypeError(f"no flax layout for {type(model).__name__}")
+
+
+def _node(tree, path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
 def _tensor(x, perm=None):
     a = np.asarray(x, np.float32)
     if perm is not None:
@@ -69,24 +109,20 @@ def _tensor(x, perm=None):
     return torch.tensor(a)
 
 
-def load_flax_variables(model: PoseNet, variables) -> PoseNet:
-    """Fill ``model`` from the JAX package's variables of the same net.
-    Raises if a weight is missing or has another shape."""
+def load_flax_variables(model: nn.Module, variables) -> nn.Module:
+    """Fill ``model`` (a PoseNet or ResNetDeconv) from the JAX package's
+    variables of the same net.  Raises if a weight is missing or has
+    another shape."""
     params, stats = variables["params"], variables["batch_stats"]
-
-    def node(tree, path):
-        for p in path:
-            tree = tree[p]
-        return tree
-
     sd = {}
-    for kind, key, path in _posenet_layout(model.nstack):
-        p = node(params, path)
-        if kind == "conv":
+    for kind, key, path in _layout(model):
+        p = _node(params, path)
+        if kind in ("conv", "kernel"):
             sd[f"{key}.weight"] = _tensor(p["kernel"], (3, 2, 0, 1))
-            sd[f"{key}.bias"] = _tensor(p["bias"])
+            if kind == "conv":
+                sd[f"{key}.bias"] = _tensor(p["bias"])
         else:
-            s = node(stats, path)
+            s = _node(stats, path)
             sd[f"{key}.weight"] = _tensor(p["scale"])
             sd[f"{key}.bias"] = _tensor(p["bias"])
             sd[f"{key}.running_mean"] = _tensor(s["mean"])
@@ -96,6 +132,17 @@ def load_flax_variables(model: PoseNet, variables) -> PoseNet:
             sd[k] = v
     model.load_state_dict(sd)
     return model
+
+
+def load_flax_quant(model: ResNetDeconv, quant) -> dict:
+    """The JAX package's calibrated ``quant`` collection (``{"pre_conv":
+    {"act_scale": s}, "layer1_0": {"conv1": {...}}, "deconv0": ...}``)
+    as the port's activation scales for ``model``, by module name: what
+    :func:`awr_tpu_torch.models.quant.set_int8` and ``Predictor.quant``
+    take.  Raises if a quantized layer has no scale."""
+    return {key: torch.tensor(float(np.asarray(
+                _node(quant, path)["act_scale"])), dtype=torch.float32)
+            for kind, key, path in _layout(model) if kind == "kernel"}
 
 
 def _unused_reference_key(model: nn.Module, key: str) -> bool:

@@ -1,2 +1,2 @@
-"""The AWR encode, decode and loss: plain PyTorch versions, CUDA kernel
-wrappers, dispatch."""
+"""The AWR encode, decode and loss, and the int8 GEMM and deconv: plain
+PyTorch versions, CUDA kernel wrappers, dispatch."""

@@ -5,7 +5,8 @@ decode -> de-normalize, test.py:61-108) as one call: crop parameters on
 the host, crop and normalize on the device, the backbone forward, the
 AWR decode (the hand-written CUDA kernel on a GPU), and the
 de-normalization back to (u px, v px, d mm) in the original camera
-frame, the reference's results/*.txt convention.
+frame, the reference's results/*.txt convention.  :meth:`Predictor.quantize`
+switches a ResNet-deconv Predictor to int8 inference.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from awr_tpu_torch.config import Config, resolve_device
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
+from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
 from awr_tpu_torch.training.steps import make_infer_step
 
@@ -42,6 +44,8 @@ class Predictor:
                 model_or_state)
         self.model = model.to(self.device).eval()
         self._infer = make_infer_step(self.model, config)
+        # calibrated int8 activation scales by layer name, once quantized
+        self.quant = None
 
     @classmethod
     def from_torch(cls, config: Config, pth_path: str, **kw):
@@ -49,6 +53,34 @@ class Predictor:
         state dict, or a dict holding it under 'model')."""
         pth = torch.load(pth_path, map_location="cpu", weights_only=True)
         return cls(config, pth.get("model", pth), **kw)
+
+    def quantize(self, calib_imgs_normalized,
+                 percentile: float = 99.99) -> None:
+        """Switch this Predictor to int8 inference (``models/quant.py``).
+
+        ``calib_imgs_normalized``: (N, S, S) normalized depth frames (the
+        input of :meth:`predict_normalized`) that calibrate each layer's
+        activation scale, in batches of 32 (the percentile is taken per
+        batch, then maxed over batches, as the JAX package does).  The
+        weights are reused unchanged.  ``percentile``: the calibration
+        statistic; the default p99.99 clips activation outliers (the JAX
+        package measured it better than the max on trained nets)."""
+        if not self.cfg.net.startswith("resnet"):
+            raise NotImplementedError(
+                f"int8 {self.cfg.net}: the port quantizes the ResNet-deconv "
+                "only; int8 hourglass is a later slice")
+        imgs = np.asarray(calib_imgs_normalized, np.float32)
+        if imgs.ndim != 3 or len(imgs) == 0:
+            raise ValueError(f"expected (N, S, S) frames, got {imgs.shape}")
+        batches = [torch.from_numpy(imgs[i:i + 32]).to(self.device)
+                   for i in range(0, len(imgs), 32)]
+        self.quant = calibrate(self.model, batches, percentile=percentile)
+        self._switch_int8()
+
+    def _switch_int8(self) -> None:
+        """Serve the int8 forward with the scales in ``self.quant``."""
+        set_int8(self.model, {k: v.to(self.device)
+                              for k, v in self.quant.items()})
 
     def _bucket(self, n: int) -> int:
         """Pad batch size up to a power-of-two bucket (min 8), so the

@@ -3,10 +3,11 @@ reference train.py:107-131 and test.py:67-97): GT offset encode, backbone
 forward, adaptive decode, weighted dense + coordinate smooth-L1, and for
 training the backward and the optimizer update.
 
-One forward per step: the stacked (S, B, 4J, F, F) output feeds every
-stack's loss.  With ``supervise_all_stacks`` (the default) every stack
-contributes to the training loss; without it only the last does, which
-is the gradient the reference's per-stack recompute loop backpropagates.
+One forward per step: the stacked (S, B, 4J, F, F) output (a single
+(B, 4J, F, F) map counts as one stack) feeds every stack's loss.  With
+``supervise_all_stacks`` (the default) every stack contributes to the
+training loss; without it only the last does, which is the gradient the
+reference's per-stack recompute loop backpropagates.
 On CUDA tensors the encode, the decode and the decode's backward are the
 hand-written kernels.  No step calls ``.item()`` or otherwise waits on
 the device: metrics come back as device tensors.
@@ -24,11 +25,17 @@ from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.loss import smooth_l1_loss
 
 
+def _stacked(out: torch.Tensor) -> torch.Tensor:
+    """A backbone's output as (S, B, 4J, F, F): the hourglass stacks its
+    maps, the ResNet-deconv returns one (B, 4J, F, F) map."""
+    return out if out.dim() == 5 else out[None]
+
+
 def _forward(model, img):
     """(B, S, S) depth -> (S, B, 4J, F, F), the input cast to the
     model's parameter dtype."""
     dtype = next(model.parameters()).dtype
-    return model(img[:, None].to(dtype))
+    return _stacked(model(img[:, None].to(dtype)))
 
 
 def _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg):
@@ -198,7 +205,7 @@ def make_infer_step(model, cfg):
 
     @torch.inference_mode()
     def infer_step(img: torch.Tensor) -> torch.Tensor:
-        preds = model(img[:, None])
+        preds = _stacked(model(img[:, None]))
         return decode_offsets(preds[-1], img, kernel)
 
     return infer_step

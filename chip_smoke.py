@@ -6,9 +6,9 @@ GPU and check them.
 
 Builds the hand-written CUDA kernels from ``awr_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version on the card.  Then, with ``hourglass_1`` at full width
-(img 128, 256 channels, 14 joints; seeded random weights), float32, TF32
-off:
+PyTorch version on the card (the int8 GEMM also against
+``torch._int_mm``).  Then, with ``hourglass_1`` at full width (img 128,
+256 channels, 14 joints; seeded random weights), float32, TF32 off:
 
 - train: K raw-mode Adam steps (device crop, augmentation drawn by a
   seeded ``torch.Generator`` on the card, encode, forward, decode, loss,
@@ -19,9 +19,15 @@ off:
 - eval: one raw eval step;
 - serve: requests through ``awr_tpu_torch.serving.Predictor``, held
   against the same Predictor on the CPU;
-- time: CUDA-event times of the train step, the inference step and each
-  kernel beside its plain version and its bound; then a
-  ``torch.profiler`` breakdown of the train step by kernel.
+- serve_resnet: ``resnet_18`` (img 128, ds 2, kernel 1.0; seeded random
+  weights) fp32 requests held against the CPU, ``Predictor.quantize`` on
+  32 normalized crops, int8 requests through the int8 GEMM and deconv
+  kernels, held against an int8 Predictor on the CPU given the card's
+  scales and against the fp32 joints;
+- time: CUDA-event times of the train step, the inference steps and each
+  kernel beside its plain version, its bound and its library call; then
+  ``torch.profiler`` breakdowns of the train step and of the int8
+  forward by kernel.
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -40,9 +46,10 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from awr_tpu_torch import kernels
-from awr_tpu_torch.config import hourglass_config
+from awr_tpu_torch.config import hourglass_config, resnet_config
 from awr_tpu_torch.data.device import (crop_normalize_batch,
                                        crop_param_tensors,
                                        draw_augment_params)
@@ -50,7 +57,8 @@ from awr_tpu_torch.data.synthetic import synthetic_frames
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
-from awr_tpu_torch.ops import decode_cuda, encode_cuda
+from awr_tpu_torch.models.quant import QuantConv, quant_layers
+from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
                                           offset2joint_softmax_backward)
 from awr_tpu_torch.serving import Predictor
@@ -61,17 +69,24 @@ from awr_tpu_torch.training.steps import (make_raw_eval_step,
 SEED = 0
 KERNEL_SIZE = 0.4
 # Each hand-written kernel on the paths: its wrapper module and launch
-# counter, its source and the TPU kernel (or XLA function) it replaces.
+# counter, its source, the TPU kernel (or XLA function) it replaces, and
+# the path of the slice that brought it (its "launches" in the summary).
 KERNELS = [
     dict(name="decode", route="cuda", module=decode_cuda, counter="LAUNCHES",
          source="awr_tpu_torch/csrc/decode.cu",
-         replaces="awr_tpu/ops/pallas_decode.py:69"),
+         replaces="awr_tpu/ops/pallas_decode.py:69", path="train"),
     dict(name="encode", route="cuda", module=encode_cuda, counter="LAUNCHES",
          source="awr_tpu_torch/csrc/encode.cu",
-         replaces="awr_tpu/ops/pallas_encode.py:40"),
+         replaces="awr_tpu/ops/pallas_encode.py:40", path="train"),
     dict(name="decode_backward", route="cuda", module=decode_cuda,
          counter="BACKWARD_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
-         replaces="awr_tpu/ops/decode.py:37"),
+         replaces="awr_tpu/ops/decode.py:37", path="train"),
+    dict(name="int8_gemm", route="cuda", module=int8_cuda,
+         counter="GEMM_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
+         replaces="awr_tpu/ops/pallas_int8.py:190", path="serve_resnet_int8"),
+    dict(name="deconv_int8", route="cuda", module=int8_cuda,
+         counter="DECONV_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
+         replaces="awr_tpu/ops/pallas_int8.py:89", path="serve_resnet_int8"),
 ]
 SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
 # float32 sums over F*F = 4096 pixels taken in another order than the
@@ -88,6 +103,16 @@ BACKWARD_RTOL_OF_MAX = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
 # cuDNN against the CPU's conv algorithms, TF32 off, through a 4-level
 # hourglass
 CPU_ATOL = 1e-3
+# int8 resnet_18 on the card against the CPU, the same int8 weights and
+# scales: the float layers (BatchNorm, adds) round differently on the two
+# devices, which can flip an activation code by one step, and each flip
+# moves the next layers' inputs; the bar of tests/test_torch_quant.py
+# (the CPU port against the JAX package: 2.5e-4 to 3.9e-4)
+INT8_CPU_ATOL = 1e-3
+# int8 against fp32 joints, the JAX package's own bar
+# (tests/test_serving.py:183)
+INT8_DRIFT_MAX = 0.05
+SERVE_BATCHES = (1, 8, 32)
 # train step on the card against the CPU: cuDNN's backward algorithms sum
 # in other orders in float32
 CROSS_LOSS_RTOL = 1e-4
@@ -96,9 +121,10 @@ CROSS_GRAD_COS = 0.999
 TRAIN_STEPS = 20
 TRAIN_BATCH = 32
 CROSS_BATCH = 4
-# (HBM bytes/s, float32 non-tensor FLOP/s) from NVIDIA's data sheets
-PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
+# (HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s) from
+# NVIDIA's data sheets; dense int8 is half the with-sparsity figure
+PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
+         "H100": (3.35e12, 67e12, 1979e12)}
 # float operations for each (sample, joint, pixel): decode (mask, logit,
 # max, exp, sum, distance, weight, three offset and three coordinate
 # products and sums); encode (three differences, squares and sums, sqrt,
@@ -186,6 +212,9 @@ def reset_counts() -> None:
 
 
 def check_launches(path: str, got: dict, want: dict) -> None:
+    """``want`` names the kernels the path launches; every other kernel
+    must not have launched."""
+    want = {k["name"]: want.get(k["name"], 0) for k in KERNELS}
     if got != want:
         raise AssertionError(f"{path}: kernel launches {got}, expected "
                              f"{want}")
@@ -263,7 +292,56 @@ def phase_kernels():
     errs["decode_backward"] = bwd["float32"]["max_abs_err"]
     emit({"phase": "kernels", "kernel": "decode_backward",
           "shape": list(off.shape), "errors": bwd})
+
+    # int8: exact integer results, so the bar is equality
+    for M, K, N in GEMM_CHECKS:
+        a, b = int8_codes((M, K), M), int8_codes((K, N), K)
+        got = int8_cuda.int8_matmul_cuda(a, b)
+        torch.cuda.synchronize()
+        plain = torch.equal(got, int8.int8_matmul(a, b))
+        # torch._int_mm takes K and N in multiples of 8
+        lib = torch.equal(got, torch._int_mm(a, b)) if K % 8 == 0 else None
+        emit({"phase": "kernels", "kernel": "int8_gemm", "shape": [M, K, N],
+              "equal_plain": plain, "equal_int_mm": lib})
+        if not plain or lib is False:
+            raise AssertionError(f"int8 GEMM disagrees at {(M, K, N)}")
+    errs["int8_gemm"] = 0.0
+    for B, H, c_in, c_out in DECONV_CHECKS:
+        xq, wq, scale = deconv_args(B, H, c_in, c_out)
+        got = int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale)
+        torch.cuda.synchronize()
+        want = int8.deconv4x4s2_int8(xq, wq, scale)
+        equal = torch.equal(got, want)
+        emit({"phase": "kernels", "kernel": "deconv_int8",
+              "shape": [B, H, H, c_in, c_out], "equal_plain": equal,
+              "max_abs_err": float((got - want).abs().max())})
+        if not equal:
+            raise AssertionError(f"int8 deconv disagrees at {(B, H, c_in)}")
+    errs["deconv_int8"] = 0.0
     return errs
+
+
+# (M, K, N) of resnet_18's int8 GEMMs at B = 32, img 128: a deconv
+# phase's shape (for the int8 probe's comparison), layer1's 3x3 conv, the
+# 5x5 stem (K = 25: byte loads; torch._int_mm refuses it)
+GEMM_CHECKS = [(32768, 1024, 256), (131072, 576, 64), (524288, 25, 64)]
+# (B, H, C_in, C_out) of resnet_18's three decoder deconvs at B = 32
+DECONV_CHECKS = [(32, 8, 512, 256), (32, 16, 256, 256), (32, 32, 256, 256)]
+
+
+def int8_codes(shape, seed):
+    g = torch.Generator("cuda").manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device="cuda",
+                         dtype=torch.int8)
+
+
+def deconv_args(B, H, c_in, c_out, seed=SEED):
+    """Seeded int8 NHWC codes, an int8 (C_in, C_out, 4, 4) weight and
+    scales in [0.5, 2]."""
+    scale = torch.empty(c_out, device="cuda").uniform_(
+        0.5, 2.0, generator=torch.Generator("cuda").manual_seed(seed))
+    return (int8_codes((B, H, H, c_in), seed + 1),
+            int8_codes((c_in, c_out, 4, 4), seed + 2), scale)
 
 
 def raw_inputs(cfg, frames, joints, centers, device):
@@ -425,11 +503,27 @@ def phase_serve(cfg, frames, centers):
         if out.shape != (B, cfg.jt_num, 3) or not np.isfinite(out).all():
             raise AssertionError(f"batch {B}: bad output {out.shape}")
     # inference mode: one decode launch a request, no backward, no encode
-    check_launches("serve", launches,
-                   {"decode": len(outs), "encode": 0, "decode_backward": 0})
+    check_launches("serve", launches, {"decode": len(outs)})
 
     # the same Predictor's weights on the CPU, on a batch of 2
     cpu = Predictor(cfg, pred.model.state_dict(), device="cpu")
+    crop_err, norm_err, cam_err = compare_with_cpu(pred, cpu, frames,
+                                                   centers)
+    emit({"phase": "serve", "net": cfg.net, "img_size": cfg.img_size,
+          "requests": sorted(outs), "launches": launches,
+          "crop_max_abs_err": crop_err, "normalized_max_abs_err": norm_err,
+          "camera_max_abs_err_px_mm": cam_err, "atol": CPU_ATOL,
+          "joint_spread_px": float(outs[32][..., :2].std(axis=1).mean())})
+    if crop_err > 1e-6 or norm_err > CPU_ATOL:
+        raise AssertionError("GPU serving disagrees with the CPU")
+    return pred, launches
+
+
+def compare_with_cpu(pred, cpu, frames, centers):
+    """Max abs differences, card against CPU, over two frames: of the
+    crops, of ``predict_normalized`` on the CPU's crops, and of
+    ``predict``."""
+    cfg = pred.cfg
     centers_uvd = xyz2uvd_np(centers[:2], cfg.paras, cfg.flip)
     cubes = np.tile(cfg.cube, (2, 1))
     crops = {dev: crop_normalize_batch(
@@ -441,14 +535,91 @@ def phase_serve(cfg, frames, centers):
     norm_err = float(np.abs(norm["cuda"] - norm["cpu"]).max())
     cam_err = float(np.abs(pred.predict(frames[:2], centers[:2])
                            - cpu.predict(frames[:2], centers[:2])).max())
-    emit({"phase": "serve", "net": cfg.net, "img_size": cfg.img_size,
-          "requests": sorted(outs), "launches": launches,
-          "crop_max_abs_err": crop_err, "normalized_max_abs_err": norm_err,
-          "camera_max_abs_err_px_mm": cam_err, "atol": CPU_ATOL,
-          "joint_spread_px": float(outs[32][..., :2].std(axis=1).mean())})
+    return crop_err, norm_err, cam_err
+
+
+def normalized_crops(cfg, frames, centers):
+    """The frames' normalized (B, S, S) crops, made on the card."""
+    img, _ = crop_normalize_batch(
+        torch.from_numpy(frames).cuda(),
+        xyz2uvd_np(centers, cfg.paras, cfg.flip),
+        np.tile(cfg.cube, (len(frames), 1)), cfg.paras, cfg.img_size)
+    return img.cpu().numpy()
+
+
+def phase_serve_resnet(frames, centers):
+    """resnet_18 fp32 requests, calibration, int8 requests; the int8
+    Predictor against one on the CPU with the card's scales, and against
+    the fp32 joints."""
+    cfg = resnet_config()
+    model = build_model(cfg.net, cfg.jt_num, cfg.downsample)
+    torch_default_init_(model, torch.Generator().manual_seed(SEED))
+    sd = randomize_batch_norm_(model).state_dict()
+    pred, pred_q = (Predictor(cfg, sd, device="cuda") for _ in range(2))
+    launches = {}
+
+    reset_counts()
+    outs = {B: pred.predict(frames[:B], centers[:B]) for B in SERVE_BATCHES}
+    launches["serve_resnet_fp32"] = counts()
+    for B, out in outs.items():
+        if out.shape != (B, cfg.jt_num, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"resnet batch {B}: bad output {out.shape}")
+    check_launches("serve_resnet_fp32", launches["serve_resnet_fp32"],
+                   {"decode": len(outs)})
+    cpu = Predictor(cfg, sd, device="cpu")
+    crop_err, norm_err, cam_err = compare_with_cpu(pred, cpu, frames, centers)
     if crop_err > 1e-6 or norm_err > CPU_ATOL:
-        raise AssertionError("GPU serving disagrees with the CPU")
-    return pred, launches
+        raise AssertionError("fp32 resnet serving on the card disagrees "
+                             "with the CPU")
+
+    crops = normalized_crops(cfg, frames, centers)
+    reset_counts()
+    t0 = time.perf_counter()
+    pred_q.quantize(crops)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    check_launches("calibrate", counts(), {})
+
+    reset_counts()
+    outs8 = {B: pred_q.predict(frames[:B], centers[:B])
+             for B in SERVE_BATCHES}
+    launches["serve_resnet_int8"] = counts()
+    for B, out in outs8.items():
+        if out.shape != (B, cfg.jt_num, 3) or not np.isfinite(out).all():
+            raise AssertionError(f"int8 batch {B}: bad output {out.shape}")
+    # per request: the 20 quantized convs, the 3 deconvs, one decode
+    n = len(outs8)
+    check_launches("serve_resnet_int8", launches["serve_resnet_int8"],
+                   {"int8_gemm": 20 * n, "deconv_int8": 3 * n, "decode": n})
+
+    cpu.quant = {k: v.cpu() for k, v in pred_q.quant.items()}
+    cpu._switch_int8()
+    _, norm8_err, cam8_err = compare_with_cpu(pred_q, cpu, frames, centers)
+    fp, q8 = (p.predict_normalized(crops) for p in (pred, pred_q))
+    drift = float(np.abs(q8 - fp).max())
+    scales = [float(v) for v in pred_q.quant.values()]
+    emit({"phase": "serve_resnet", "net": cfg.net, "img_size": cfg.img_size,
+          "downsample": cfg.downsample, "kernel_size": cfg.kernel_size,
+          "requests": sorted(outs), "launches": launches,
+          "fp32": {"crop_max_abs_err": crop_err,
+                   "normalized_max_abs_err": norm_err,
+                   "camera_max_abs_err_px_mm": cam_err, "atol": CPU_ATOL},
+          "calibration": {"frames": len(crops), "seconds": calib_s,
+                          "layers": len(scales), "scale_min": min(scales),
+                          "scale_max": max(scales)},
+          "int8": {"normalized_max_abs_err_vs_cpu": norm8_err,
+                   "camera_max_abs_err_px_mm_vs_cpu": cam8_err,
+                   "atol": INT8_CPU_ATOL,
+                   "drift_vs_fp32_max": drift,
+                   "drift_vs_fp32_mean": float(np.abs(q8 - fp).mean()),
+                   "drift_bar": INT8_DRIFT_MAX},
+          "joint_spread_px": float(outs[32][..., :2].std(axis=1).mean())})
+    if norm8_err > INT8_CPU_ATOL:
+        raise AssertionError("int8 serving on the card disagrees with the "
+                             "CPU")
+    if not drift < INT8_DRIFT_MAX:
+        raise AssertionError(f"int8 joints drift {drift} from fp32")
+    return pred, pred_q, crops, launches
 
 
 def kernel_times(fn, plain, make_args, nbytes, ops, bw, flops):
@@ -526,18 +697,132 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
     return {name: r for (name, b), r in res.items() if b == 32}
 
 
-def phase_profile(train, args, steps=3):
-    """Device time of the raw train step by kernel (``torch.profiler``),
-    summed over ``steps`` steps, and the device's busy share of them."""
+def gemm_shapes(pred_q, img):
+    """(M, K, N) of every int8 GEMM of one forward of ``img``, in order."""
+    shapes = []
+
+    def record(m, args):
+        B, _, H, W = args[0].shape
+        (kh, kw), (sh, sw), (ph, pw) = m.kernel_size, m.stride, m.padding
+        M = B * ((H + 2 * ph - kh) // sh + 1) * ((W + 2 * pw - kw) // sw + 1)
+        shapes.append((M, m.in_channels * kh * kw, m.out_channels))
+
+    hooks = [m.register_forward_pre_hook(record)
+             for m in quant_layers(pred_q.model).values()
+             if isinstance(m, QuantConv)]
+    try:
+        pred_q._infer(img)
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
+    """resnet_18 request and forward times, fp32 and int8; the int8
+    kernels' times beside their plain versions, bounds and library
+    calls, at the shapes of an int8 request at B = 32."""
+    out = {"phase": "time_resnet", "net": pred.cfg.net}
+    for name, p in (("fp32", pred), ("int8", pred_q)):
+        for B in (1, 32, 256):
+            f = np.resize(frames, (B,) + frames.shape[1:])
+            c = np.resize(centers, (B, 3))
+            ms = host_ms(lambda: p.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
+            out[f"{name}_predict_ms_b{B}"] = ms
+            out[f"{name}_predict_fps_b{B}"] = B / ms * 1e3
+        for B in (8, 32, 256):
+            img = torch.from_numpy(np.resize(crops, (B,) + crops.shape[1:]))
+            out[f"{name}_infer_ms_b{B}"] = device_ms(p._infer, [(img.cuda(),)],
+                                                     10)
+
+    # the GEMM: every distinct shape of a B = 32 request, summed over the
+    # request's 20 GEMMs; its library call is torch._int_mm, with K padded
+    # by zeros to a multiple of 8 (the same products)
+    shapes = gemm_shapes(pred_q, torch.from_numpy(crops).cuda())
+    per_shape = {}
+    for M, K, N in sorted(set(shapes)):
+        def gemm_args(M=M, K=K, N=N):
+            return int8_codes((M, K), M + K), int8_codes((K, N), N)
+        r = kernel_times(int8_cuda.int8_matmul_cuda, int8.int8_matmul,
+                         gemm_args, M * K + K * N + 4 * M * N, 2 * M * K * N,
+                         bw, int8_ops)
+        Kp = -(-K // 8) * 8
+
+        def lib_args(M=M, K=K, N=N, Kp=Kp):
+            a, b = gemm_args()
+            return (F.pad(a, (0, Kp - K)).contiguous(),
+                    F.pad(b, (0, 0, 0, Kp - K)).contiguous())
+        r["library_ms"] = device_ms(torch._int_mm, [lib_args() for _ in range(
+            max(2, -(-200_000_000 // r["bytes"])))], 50)
+        r["count"] = shapes.count((M, K, N))
+        per_shape[f"{M}x{K}x{N}"] = r
+    gemm = {key: sum(r[key] * r["count"] for r in per_shape.values())
+            for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes",
+                        "ops")}
+    t_bytes, t_ops = gemm["bytes"] / bw, gemm["ops"] / int8_ops
+    gemm.update(launches=len(shapes),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                tops=gemm["ops"] / gemm["ms"] / 1e9, shapes=per_shape)
+    out["int8_gemm_request_b32"] = gemm
+
+    # the deconv at deconv2's shape (C_in = 256); its library call is
+    # cuDNN's float32 conv_transpose2d (TF32 off) on the int8 values,
+    # times the scale: exact where cuDNN sums directly, as every partial
+    # sum is an integer below 4 * 256 * 127**2 < 2**24 (an FFT algorithm
+    # would round; its error is recorded)
+    B, H, c_in, c_out = DECONV_CHECKS[-1]
+
+    def dec_args():
+        return deconv_args(B, H, c_in, c_out)
+    nbytes = B * H * H * c_in + 16 * c_in * c_out + 4 * c_out \
+        + 4 * B * c_out * 4 * H * H
+    dec = kernel_times(int8_cuda.deconv4x4s2_int8_cuda, int8.deconv4x4s2_int8,
+                       dec_args, nbytes, 2 * 16 * B * H * H * c_in * c_out,
+                       bw, int8_ops)
+
+    def lib_args():
+        xq, wq, scale = dec_args()
+        return (xq.permute(0, 3, 1, 2).float().contiguous(), wq.float(),
+                scale.view(1, -1, 1, 1))
+
+    def lib(x, w, scale):
+        return F.conv_transpose2d(x, w, stride=2, padding=1) * scale
+    xq, wq, scale = dec_args()
+    dec["library_max_abs_err"] = float(
+        (lib(*lib_args()) - int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale))
+        .abs().max())
+    dec["library_ms"] = device_ms(lib, [lib_args() for _ in range(2)], 20)
+    dec["shape"] = [B, H, H, c_in, c_out]
+    dec["tops"] = dec["ops"] / dec["ms"] / 1e9
+    out["deconv_int8_b32"] = dec
+    emit(out)
+    return {"int8_gemm": gemm, "deconv_int8": dec}
+
+
+# kernel-name groups of the int8 forward's profile, first match wins
+INT8_GROUPS = [("int8_gemm", ("s8_gemm",)), ("deconv_int8", ("s8_deconv",)),
+               ("decode", ("decode_kernel",)), ("im2col", ("im2col",)),
+               ("copies (to int8, layouts)", ("copy",)),
+               ("cudnn (BatchNorm, heads)", ("cudnn", "bn_fw", "xmma",
+                                             "implicit", "sm90", "sm80",
+                                             "cutlass", "gemm", "conv")),
+               ("max_pool", ("max_pool",))]
+
+
+def phase_profile(path, fn, args, steps=3, groups=()):
+    """Device time of ``fn(*args)`` by kernel (``torch.profiler``),
+    summed over ``steps`` calls, and the device's busy share of them;
+    with ``groups``, also by group of kernel names (the rest under
+    "quantize, dequantize and other elementwise")."""
     from torch.profiler import ProfilerActivity, profile
 
-    train(*args)
+    fn(*args)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            train(*args)
+            fn(*args)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only: an aten op's own device time would count
@@ -548,9 +833,17 @@ def phase_profile(train, args, steps=3):
             and e.self_device_time_total > 0]
     busy_ms = sum(ms for _, ms in rows)
     rows.sort(key=lambda r: -r[1])
-    emit({"phase": "profile", "steps": steps, "wall_ms_per_step":
-          wall_ms / steps, "device_ms_per_step": busy_ms / steps,
+    by_group = {}
+    for name, ms in rows:
+        group = next((g for g, keys in groups
+                      if any(k in name for k in keys)),
+                     "quantize, dequantize and other elementwise")
+        by_group[group] = by_group.get(group, 0.0) + ms / steps
+    emit({"phase": "profile", "path": path, "steps": steps,
+          "wall_ms_per_step": wall_ms / steps,
+          "device_ms_per_step": busy_ms / steps,
           "device_busy_share": busy_ms / wall_ms if busy_ms else None,
+          **({"groups_ms_per_step": by_group} if groups else {}),
           "kernels_by_device_ms": [
               {"name": name[:90], "ms_per_step": ms / steps,
                "share": ms / busy_ms} for name, ms in rows[:25]]})
@@ -562,7 +855,7 @@ def main() -> int:
         return 1
     torch.cuda.set_device(0)
     smi = phase_env()
-    bw, flops = peaks(torch.cuda.get_device_name(0))
+    bw, flops, int8_ops = peaks(torch.cuda.get_device_name(0))
     phase_build()
     errs = phase_kernels()
 
@@ -575,20 +868,30 @@ def main() -> int:
     phase_cross_device(cfg, frames, joints, centers)
     launches["eval"] = phase_eval(cfg, model, raw, p)
     pred, launches["serve"] = phase_serve(cfg, frames, centers)
+    pred_r, pred_q, crops, resnet_launches = phase_serve_resnet(frames,
+                                                                centers)
+    launches.update(resnet_launches)
     times = phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p)
-    phase_profile(train, (raw, p, draw_augment_params(
+    times.update(phase_time_resnet(pred_r, pred_q, crops, frames, centers,
+                                   bw, int8_ops))
+    phase_profile("train", train, (raw, p, draw_augment_params(
         torch.Generator("cuda").manual_seed(SEED + 3), TRAIN_BATCH,
         *cfg.augment_para)))
+    phase_profile("serve_resnet_int8 forward + decode, B = 32",
+                  pred_q._infer, (torch.from_numpy(crops).cuda(),),
+                  groups=INT8_GROUPS)
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],
-         "replaces": k["replaces"], "launches": launches["train"][k["name"]],
+         "replaces": k["replaces"],
+         "launches": launches[k["path"]][k["name"]],
          "launches_by_path": {path: n[k["name"]]
                               for path, n in launches.items()},
          "max_abs_err": errs[k["name"]], "ms": times[k["name"]]["ms"],
          "plain_ms": times[k["name"]]["plain_ms"],
          "bound_ms": times[k["name"]]["bound_ms"],
-         "bound_by": times[k["name"]]["bound_by"], "library_ms": None}
+         "bound_by": times[k["name"]]["bound_by"],
+         "library_ms": times[k["name"]].get("library_ms")}
         for k in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -14,6 +14,7 @@ from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
 from awr_tpu_torch.models.weights import (load_flax_variables,
                                           load_reference_state_dict)
+from awr_tpu_torch.serving import Predictor
 
 def port_model(nstack, variables):
     return load_flax_variables(build_model(f"hourglass_{nstack}", 14),
@@ -89,8 +90,10 @@ def test_torch_default_init_is_seeded():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="resnet"):
-        build_model("resnet_18", 14)
+    cfg = hourglass_config(img_size=IMG)
+    pred = Predictor(cfg, build_model(cfg.net, cfg.jt_num), device="cpu")
+    with pytest.raises(NotImplementedError, match="int8 hourglass"):
+        pred.quantize(np.zeros((2, IMG, IMG), np.float32))
     with pytest.raises(NotImplementedError, match="float32"):
         Config(compute_dtype="bfloat16")
     cfg = hourglass_config(2)

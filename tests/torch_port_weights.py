@@ -1,4 +1,5 @@
-"""Seeded JAX-package hourglass weights for the port's parity tests."""
+"""Seeded JAX-package hourglass and ResNet-deconv weights for the port's
+parity tests."""
 
 import jax
 import jax.numpy as jnp
@@ -56,6 +57,37 @@ def random_variables(nstack, seed=0):
         if jax.tree_util.keystr(path).endswith("['var']"):
             return (np.abs(rng.randn(*leaf.shape)) + 0.5).astype(np.float32)
         return (0.05 * rng.randn(*leaf.shape)).astype(np.float32)
+
+    return model, {k: jax.tree_util.tree_map_with_path(draw, dict(shapes[k]))
+                   for k in ("params", "batch_stats")}
+
+
+def resnet_variables(layers, downsample, img, seed=0):
+    """The JAX ResNet-deconv and seeded variables that give non-degenerate
+    maps (the reference's N(0, 0.001) deconvs and heads give near-constant
+    ones): every conv and deconv kernel U(-1/sqrt(fan_in), 1/sqrt(fan_in))
+    with PyTorch's fan_in (kh * kw * shape[2] in both flax layouts), head
+    biases N(0, 0.05^2), BatchNorm as in :func:`flax_variables`.  Only
+    the shapes of flax's init are taken (``eval_shape``)."""
+    model = jax_build_model(f"resnet_{layers}", 14, downsample)
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, img, img, 1)), train=False))
+    rng = np.random.RandomState(seed)
+
+    def draw(path, leaf):
+        name, shape = jax.tree_util.keystr(path), leaf.shape
+        if name.endswith("['kernel']"):
+            bound = 1.0 / np.sqrt(shape[0] * shape[1] * shape[2])
+            a = rng.uniform(-bound, bound, shape)
+        elif name.endswith("['scale']"):
+            a = 1 + 0.2 * rng.randn(*shape)
+        elif name.endswith("['var']"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif name.endswith("['mean']"):
+            a = 0.1 * rng.randn(*shape)
+        else:  # BatchNorm and head biases
+            a = (0.1 if "bn" in name else 0.05) * rng.randn(*shape)
+        return a.astype(np.float32)
 
     return model, {k: jax.tree_util.tree_map_with_path(draw, dict(shapes[k]))
                    for k in ("params", "batch_stats")}
