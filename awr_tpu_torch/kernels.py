@@ -3,8 +3,9 @@
 Each ``awr_tpu_torch/csrc/<name>.cu`` exposes a plain ``extern "C"``
 launcher.  It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/awr_tpu_torch/lib<name>-<hash>.so`` at first use and bound with
-``ctypes``.  The hash covers the source and the flags, so an edited
-source is rebuilt.  Nothing here runs when the module is imported.
+``ctypes``.  The hash covers the source, every header under ``csrc/``
+(``*.cuh``) and the flags, so an edited source or header is rebuilt.
+Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -35,8 +36,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

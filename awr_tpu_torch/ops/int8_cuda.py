@@ -5,44 +5,132 @@ The kernels' library is built and loaded at the first call
 (:mod:`awr_tpu_torch.kernels`), so this module imports without a GPU or
 ``nvcc``.  Their plain versions are :func:`awr_tpu_torch.ops.int8.int8_matmul`
 and :func:`~awr_tpu_torch.ops.int8.deconv4x4s2_int8`; the wrappers take the
-same arguments.
+same arguments.  :func:`gemm_plan` and :func:`deconv_plan` choose each
+launch's tiles from the shapes alone, on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 from awr_tpu_torch import kernels
-from awr_tpu_torch.ops.int8 import prep_deconv_weights
 
 # Kernel launches made by each wrapper since its count was last reset.
 GEMM_LAUNCHES = 0
 DECONV_LAUNCHES = 0
 
+# The tensor-core kernels' fixed tile: 128 rows of A (two warpgroups of
+# 64) and 128 bytes of K a pipeline stage; the GEMM's tile width BN is 64
+# or 128, the deconv's 64 output channels.  These mirror the constants
+# of csrc/int8.cu.
+BM = 128
+BK = 128
+DECONV_BN = 64
+# SMs of an H100 SXM.
+SMS = 132
+# A split of K walks at least this many stages.
+MIN_SPLIT_STAGES = 4
+# Shared memory a block may use on Hopper.
+SMEM_LIMIT = 232_448
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _ring_smem(stages: int, stage_bytes: int) -> int:
+    # the ring, a full and an empty barrier a stage, and 1024 bytes of
+    # slack to align the ring for the 128-byte swizzle
+    return stages * stage_bytes + 16 * stages + 1024
+
+
+def tc_smem(bn: int) -> int:
+    """Dynamic shared memory of a GEMM block of width ``bn`` (a ring of 3
+    stages at 128, 4 at 64: two blocks an SM), or with ``bn`` 0 of a
+    deconv block (4 stages of an A tile and two weight tiles, and the
+    float32 output tile of both column phases: one block an SM)."""
+    if bn == 0:
+        return (_ring_smem(4, (BM + 2 * DECONV_BN) * BK)
+                + BM * 2 * DECONV_BN * 4)
+    return _ring_smem(3 if bn == 128 else 4, (BM + bn) * BK)
+
+
+class GemmPlan(NamedTuple):
+    path: str       # "wgmma" (tensor cores, TMA) or "dp4a" (byte loads)
+    bn: int         # tile width along N
+    split: int      # splits of K (blockIdx.z); > 1 adds into a zeroed C
+    per_split: int  # K stages (BK bytes each) a split walks
+    smem: int       # dynamic shared memory a block, bytes
+
+
+def gemm_plan(M: int, K: int, N: int) -> GemmPlan:
+    """The launch of an (M, K) @ (K, N) int8 GEMM.  K % 16 != 0 (TMA needs
+    16-byte row strides in A and B) takes the byte-load dp4a kernel.
+    Otherwise BN is 128 where 128-wide tiles still give every SM one,
+    else 64 (twice the blocks).  A grid that leaves three quarters of the
+    SMs idle splits K until about every SM has a block, each split
+    walking at least ``MIN_SPLIT_STAGES`` stages and none empty: its
+    partial tiles are added into a zeroed C by TMA, so N % 4 == 0 (C's
+    rows 16-byte strided); the memset and the adds cost more than the
+    idle SMs until then (measured on an H100, PERF.md)."""
+    k_stages = _cdiv(K, BK)
+    if K % 16:
+        return GemmPlan("dp4a", 64, 1, k_stages, 0)
+    bn = 128 if N > 64 and _cdiv(M, BM) * _cdiv(N, 128) >= SMS else 64
+    tiles = _cdiv(M, BM) * _cdiv(N, bn)
+    split = 1
+    if 4 * tiles <= SMS and N % 4 == 0:
+        split = max(1, min(_cdiv(SMS, tiles), k_stages // MIN_SPLIT_STAGES))
+    per_split = _cdiv(k_stages, split)
+    return GemmPlan("wgmma", bn, _cdiv(k_stages, per_split), per_split,
+                    tc_smem(bn))
+
+
+class DeconvPlan(NamedTuple):
+    tw: int    # input pixels of a tile along W ...
+    th: int    # ... along H ...
+    tb: int    # ... and images: tw * th * tb == BM
+    smem: int  # dynamic shared memory a block, bytes
+
+
+def deconv_plan(B: int, H: int, W: int, c_in: int, c_out: int) -> DeconvPlan:
+    """The launch of a polyphase int8 deconv.  A unit of work is BM = 128
+    input pixels (16 x 8 of one image where W > 8, else 8 wide and 8 high
+    (two images) or 16 high) of one row phase, both column phases and 64
+    output channels; its K stages are 128 channels of one row tap and
+    one column shift.  One persistent block an SM walks the units."""
+    tw = 16 if W > 8 else 8
+    th = 8 if tw == 16 or H <= 8 else 16
+    return DeconvPlan(tw, th, BM // (tw * th), tc_smem(0))
+
 
 @functools.lru_cache(maxsize=None)
-def _gemm_launcher():
-    fn = kernels.load("int8").awr_s8_gemm
-    # A, Bt, C, M, N, K, vec, stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+def _launcher(name: str, n_ptrs: int, n_ints: int):
+    fn = getattr(kernels.load("int8"), name)
+    # pointers, ints, stream
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
-@functools.lru_cache(maxsize=None)
-def _deconv_launcher():
-    fn = kernels.load("int8").awr_s8_deconv
-    # x, wph, scale, out, B, H, W, C_in, C_out, stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def library_smem(bn: int) -> int:
+    """The built library's dynamic shared memory of a GEMM block at width
+    ``bn``, or of a deconv block at 0 (the numbers of :func:`tc_smem`)."""
+    fn = kernels.load("int8").awr_s8_tc_smem
+    fn.argtypes = [ctypes.c_int]
     fn.restype = ctypes.c_int
-    return fn
+    return fn(bn)
 
 
-def _aligned(*ts) -> bool:
-    return all(t.data_ptr() % 16 == 0 for t in ts)
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where its base is 16-byte aligned (as TMA reads it), else a
+    copy (a fresh allocation is)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _on_one_cuda_device(name, *ts) -> None:
@@ -75,12 +163,19 @@ def int8_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if max(M, N, K) >= 2 ** 31:
         raise ValueError(f"int8 GEMM: {(M, K, N)} overflows 32-bit sizes")
     bt = b.t().contiguous()
-    c = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    vec = int(K % 16 == 0 and _aligned(a, bt))
+    plan = gemm_plan(M, K, N)
+    alloc = torch.zeros if plan.split > 1 else torch.empty
+    c = alloc((M, N), dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
-        err = _gemm_launcher()(a.data_ptr(), bt.data_ptr(), c.data_ptr(),
-                               M, N, K, vec,
-                               torch.cuda.current_stream(a.device).cuda_stream)
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        if plan.path == "wgmma":
+            a, bt = _aligned(a), _aligned(bt)
+            err = _launcher("awr_s8_gemm_tc", 3, 6)(
+                a.data_ptr(), bt.data_ptr(), c.data_ptr(), M, N, K, plan.bn,
+                plan.split, plan.per_split, stream)
+        else:
+            err = _launcher("awr_s8_gemm", 3, 3)(
+                a.data_ptr(), bt.data_ptr(), c.data_ptr(), M, N, K, stream)
     if err != 0:
         raise RuntimeError(f"int8 GEMM launch failed: CUDA error {err}")
     GEMM_LAUNCHES += 1
@@ -113,17 +208,19 @@ def deconv4x4s2_int8_cuda(xq: torch.Tensor, wq: torch.Tensor,
     _on_one_cuda_device("int8 deconv", xq, wq, scale)
     if 4 * B * H * W >= 2 ** 31 or 4 * c_in >= 2 ** 31:
         raise ValueError("int8 deconv: shape overflows 32-bit sizes")
-    # (4, C_out, 4 C_in): each phase's operand with K contiguous
-    wph = prep_deconv_weights(wq).transpose(1, 2).contiguous()
-    scale = scale.contiguous()
-    if not _aligned(xq, wph):
-        raise ValueError("int8 deconv takes 16-byte aligned codes")
+    wq, scale, xq = wq.contiguous(), scale.contiguous(), _aligned(xq)
+    # the kernel's per-phase weight operands, (4, C_out, 4 C_in), made by
+    # the library's first kernel
+    wph = torch.empty((4, c_out, 4 * c_in), dtype=torch.int8,
+                      device=xq.device)
+    plan = deconv_plan(B, H, W, c_in, c_out)
     out = torch.empty((B, c_out, 2 * H, 2 * W), dtype=torch.float32,
                       device=xq.device)
     with torch.cuda.device(xq.device):
-        err = _deconv_launcher()(
-            xq.data_ptr(), wph.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            B, H, W, c_in, c_out,
+        err = _launcher("awr_s8_deconv", 5, 8)(
+            xq.data_ptr(), wq.data_ptr(), wph.data_ptr(), scale.data_ptr(),
+            out.data_ptr(),
+            B, H, W, c_in, c_out, plan.tw, plan.th, plan.tb,
             torch.cuda.current_stream(xq.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 deconv launch failed: CUDA error {err}")

@@ -223,11 +223,19 @@ def check_launches(path: str, got: dict, want: dict) -> None:
 def phase_build():
     t0 = time.perf_counter()
     report = kernels.build(SOURCES)
+    # the int8 tensor-core kernels' dynamic shared memory, from the
+    # library (the GEMM's by tile width; 0: the deconv's)
+    smem = {bn: int8_cuda.library_smem(bn) for bn in (0, 64, 128)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "kernels": {n: {"seconds": r["seconds"],
                           "ptxas": [ln.strip() for ln in r["ptxas"].splitlines()
-                                    if "registers" in ln or "spill" in ln]}
-                      for n, r in report.items()}})
+                                    if "entry function" in ln
+                                    or "registers" in ln or "spill" in ln]}
+                      for n, r in report.items()},
+          "int8_tc_dynamic_smem": smem})
+    if smem != {bn: int8_cuda.tc_smem(bn) for bn in smem}:
+        raise AssertionError("int8 shared memory: the library and the "
+                             "host's plan disagree")
 
 
 def encode_inputs(B, F=64, J=14, H=128, seed=SEED):
@@ -297,13 +305,16 @@ def phase_kernels():
     for M, K, N in GEMM_CHECKS:
         a, b = int8_codes((M, K), M), int8_codes((K, N), K)
         got = int8_cuda.int8_matmul_cuda(a, b)
+        again = int8_cuda.int8_matmul_cuda(a, b)
         torch.cuda.synchronize()
         plain = torch.equal(got, int8.int8_matmul(a, b))
         # torch._int_mm takes K and N in multiples of 8
         lib = torch.equal(got, torch._int_mm(a, b)) if K % 8 == 0 else None
         emit({"phase": "kernels", "kernel": "int8_gemm", "shape": [M, K, N],
-              "equal_plain": plain, "equal_int_mm": lib})
-        if not plain or lib is False:
+              "plan": int8_cuda.gemm_plan(M, K, N)._asdict(),
+              "equal_plain": plain, "equal_int_mm": lib,
+              "equal_second_run": torch.equal(got, again)})
+        if not plain or lib is False or not torch.equal(got, again):
             raise AssertionError(f"int8 GEMM disagrees at {(M, K, N)}")
     errs["int8_gemm"] = 0.0
     for B, H, c_in, c_out in DECONV_CHECKS:
@@ -313,7 +324,9 @@ def phase_kernels():
         want = int8.deconv4x4s2_int8(xq, wq, scale)
         equal = torch.equal(got, want)
         emit({"phase": "kernels", "kernel": "deconv_int8",
-              "shape": [B, H, H, c_in, c_out], "equal_plain": equal,
+              "shape": [B, H, H, c_in, c_out],
+              "plan": int8_cuda.deconv_plan(B, H, H, c_in, c_out)._asdict(),
+              "equal_plain": equal,
               "max_abs_err": float((got - want).abs().max())})
         if not equal:
             raise AssertionError(f"int8 deconv disagrees at {(B, H, c_in)}")
@@ -323,10 +336,14 @@ def phase_kernels():
 
 # (M, K, N) of resnet_18's int8 GEMMs at B = 32, img 128: a deconv
 # phase's shape (for the int8 probe's comparison), layer1's 3x3 conv, the
-# 5x5 stem (K = 25: byte loads; torch._int_mm refuses it)
-GEMM_CHECKS = [(32768, 1024, 256), (131072, 576, 64), (524288, 25, 64)]
-# (B, H, C_in, C_out) of resnet_18's three decoder deconvs at B = 32
-DECONV_CHECKS = [(32, 8, 512, 256), (32, 16, 256, 256), (32, 32, 256, 256)]
+# 5x5 stem (K = 25: byte loads; torch._int_mm refuses it), layer4's and
+# layer3's 3x3 convs, and layer4's at bucket 8 (split K)
+GEMM_CHECKS = [(32768, 1024, 256), (131072, 576, 64), (524288, 25, 64),
+               (2048, 4608, 512), (512, 4608, 512), (8192, 2304, 256)]
+# (B, H, C_in, C_out) of resnet_18's three decoder deconvs at B = 32, and
+# deconv0 at bucket 8
+DECONV_CHECKS = [(32, 8, 512, 256), (32, 16, 256, 256), (32, 32, 256, 256),
+                 (8, 8, 512, 256)]
 
 
 def int8_codes(shape, seed):
@@ -721,7 +738,8 @@ def gemm_shapes(pred_q, img):
 def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
     """resnet_18 request and forward times, fp32 and int8; the int8
     kernels' times beside their plain versions, bounds and library
-    calls, at the shapes of an int8 request at B = 32."""
+    calls: the GEMM at the shapes of an int8 request at B = 32 and 8,
+    the deconv at the request's three shapes at B = 32."""
     out = {"phase": "time_resnet", "net": pred.cfg.net}
     for name, p in (("fp32", pred), ("int8", pred_q)):
         for B in (1, 32, 256):
@@ -735,14 +753,37 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
             out[f"{name}_infer_ms_b{B}"] = device_ms(p._infer, [(img.cuda(),)],
                                                      10)
 
-    # the GEMM: every distinct shape of a B = 32 request, summed over the
-    # request's 20 GEMMs; its library call is torch._int_mm, with K padded
-    # by zeros to a multiple of 8 (the same products)
-    shapes = gemm_shapes(pred_q, torch.from_numpy(crops).cuda())
+    gemm = {}
+    for B in (32, 8):
+        gemm[B] = gemm_request(pred_q, torch.from_numpy(crops[:B]).cuda(),
+                               bw, int8_ops)
+        out[f"int8_gemm_request_b{B}"] = gemm[B]
+    deconvs = {}
+    for B, H, c_in, c_out in DECONV_CHECKS[:3]:
+        deconvs[f"deconv_{H}x{H}_{c_in}_{c_out}"] = deconv_times(
+            B, H, c_in, c_out, bw, int8_ops)
+    out["deconv_int8_request_b32"] = dict(
+        {key: sum(r[key] for r in deconvs.values())
+         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes",
+                     "ops")}, deconvs=deconvs)
+    # deconv2 alone, the row kept comparable with earlier runs
+    dec = out["deconv_int8_b32"] = deconvs["deconv_32x32_256_256"]
+    emit(out)
+    return {"int8_gemm": gemm[32], "deconv_int8": dec}
+
+
+def gemm_request(pred_q, img, bw, int8_ops):
+    """The int8 GEMM at every distinct shape of one request on ``img``,
+    summed over the request's 20 GEMMs.  B is passed as a QuantConv
+    passes it, the transposed view of a contiguous (N, K) weight, which
+    the wrapper takes without a copy.  The library call is torch._int_mm
+    on a contiguous (K, N) B, with K padded by zeros to a multiple of 8
+    (the same products)."""
+    shapes = gemm_shapes(pred_q, img)
     per_shape = {}
     for M, K, N in sorted(set(shapes)):
         def gemm_args(M=M, K=K, N=N):
-            return int8_codes((M, K), M + K), int8_codes((K, N), N)
+            return int8_codes((M, K), M + K), int8_codes((N, K), N).t()
         r = kernel_times(int8_cuda.int8_matmul_cuda, int8.int8_matmul,
                          gemm_args, M * K + K * N + 4 * M * N, 2 * M * K * N,
                          bw, int8_ops)
@@ -755,6 +796,8 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
         r["library_ms"] = device_ms(torch._int_mm, [lib_args() for _ in range(
             max(2, -(-200_000_000 // r["bytes"])))], 50)
         r["count"] = shapes.count((M, K, N))
+        r["tops"] = r["ops"] / r["ms"] / 1e9
+        r["plan"] = int8_cuda.gemm_plan(M, K, N)._asdict()
         per_shape[f"{M}x{K}x{N}"] = r
     gemm = {key: sum(r[key] * r["count"] for r in per_shape.values())
             for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes",
@@ -763,15 +806,15 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
     gemm.update(launches=len(shapes),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 tops=gemm["ops"] / gemm["ms"] / 1e9, shapes=per_shape)
-    out["int8_gemm_request_b32"] = gemm
+    return gemm
 
-    # the deconv at deconv2's shape (C_in = 256); its library call is
-    # cuDNN's float32 conv_transpose2d (TF32 off) on the int8 values,
-    # times the scale: exact where cuDNN sums directly, as every partial
-    # sum is an integer below 4 * 256 * 127**2 < 2**24 (an FFT algorithm
-    # would round; its error is recorded)
-    B, H, c_in, c_out = DECONV_CHECKS[-1]
 
+def deconv_times(B, H, c_in, c_out, bw, int8_ops):
+    """The int8 deconv at one decoder shape; its library call is cuDNN's
+    float32 conv_transpose2d (TF32 off) on the int8 values, times the
+    scale: exact where cuDNN sums directly and every partial sum is an
+    integer below 2**24 (C_in = 256: 4 * 256 * 127**2 < 2**24; deconv0's
+    C_in = 512 can pass it), so its error is recorded."""
     def dec_args():
         return deconv_args(B, H, c_in, c_out)
     nbytes = B * H * H * c_in + 16 * c_in * c_out + 4 * c_out \
@@ -793,10 +836,9 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
         .abs().max())
     dec["library_ms"] = device_ms(lib, [lib_args() for _ in range(2)], 20)
     dec["shape"] = [B, H, H, c_in, c_out]
+    dec["plan"] = int8_cuda.deconv_plan(B, H, H, c_in, c_out)._asdict()
     dec["tops"] = dec["ops"] / dec["ms"] / 1e9
-    out["deconv_int8_b32"] = dec
-    emit(out)
-    return {"int8_gemm": gemm, "deconv_int8": dec}
+    return dec
 
 
 # kernel-name groups of the int8 forward's profile, first match wins

@@ -127,10 +127,27 @@ def int8_codes(cuda, shape, seed):
                          dtype=torch.int8)
 
 
-# (M, K, N): odd M and K (byte loads), the stem, layer1's 3x3, a deconv
-# phase's shape
+def int_mm(a, b):
+    """``torch._int_mm(a, b)``, or None where cuBLAS refuses the shape (K
+    and N must be multiples of 8; K = 48 is refused too)."""
+    if a.shape[1] % 8 or b.shape[1] % 8:
+        return None
+    try:
+        return torch._int_mm(a, b)
+    except RuntimeError:
+        return None
+
+
+# (M, K, N): odd M and K % 16 != 0 (the byte-load path), the stem,
+# layer1's 3x3, a deconv phase's shape; layer4's 3x3 at buckets 32 and 8
+# (the latter splits K); N no multiple of the tile (24, 40); M below one
+# warpgroup's 64 rows; K = 48, no multiple of the 128-byte K stage;
+# N % 4 != 0 (the tile stored from registers), also where N % 4 == 0
+# would split K
 GEMM_SHAPES = [(1000, 25, 64), (333, 40, 24), (4096, 576, 64),
-               (32768, 1024, 256)]
+               (32768, 1024, 256), (2048, 4608, 512), (512, 4608, 512),
+               (1000, 256, 24), (777, 128, 40), (37, 512, 128),
+               (300, 48, 64), (100, 64, 30), (512, 4608, 510)]
 
 
 @pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
@@ -142,17 +159,49 @@ def test_int8_gemm_kernel_matches_plain(cuda, M, K, N):
     assert int8_cuda.GEMM_LAUNCHES == before + 1
     assert got.dtype == torch.int32 and got.shape == (M, N)
     assert torch.equal(got, int8.int8_matmul(a, b))
-    if K % 8 == 0 and N % 8 == 0:
-        assert torch.equal(got, torch._int_mm(a, b))
+    lib = int_mm(a, b)
+    assert lib is None or torch.equal(got, lib)
     # B as the transposed view of a conv weight: the same result
     assert torch.equal(int8_cuda.int8_matmul_cuda(a, b.t().contiguous().t()),
                        got)
 
 
-# (B, H, W, C_in, C_out): resnet_18's three decoder deconvs at B = 2, and
-# an odd shape
+# layer4's 3x3 convs at bucket 8: 32 tiles, so K is split
+@pytest.mark.parametrize("M,K,N", [(512, 4608, 512), (512, 2304, 512)])
+def test_int8_gemm_split_k_is_deterministic(cuda, M, K, N):
+    """Split-K adds int32 partial sums with atomics in any order: integer
+    addition is associative, so two runs agree bit for bit."""
+    assert int8_cuda.gemm_plan(M, K, N).split > 1
+    a, b = int8_codes(cuda, (M, K), 1), int8_codes(cuda, (K, N), 2)
+    first = int8_cuda.int8_matmul_cuda(a, b)
+    second = int8_cuda.int8_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert torch.equal(first, int8.int8_matmul(a, b))
+
+
+def test_int8_gemm_unaligned_operand(cuda):
+    """A view whose base is not 16-byte aligned is copied for TMA."""
+    base = int8_codes(cuda, (300 * 64 + 1,), 3)
+    a = base[1:].view(300, 64)
+    b = int8_codes(cuda, (64, 128), 4)
+    assert a.data_ptr() % 16 != 0
+    assert torch.equal(int8_cuda.int8_matmul_cuda(a, b),
+                       int8.int8_matmul(a, b))
+
+
+def test_library_smem_matches_the_plan(cuda):
+    for bn in (0, 64, 128):
+        assert int8_cuda.library_smem(bn) == int8_cuda.tc_smem(bn)
+
+
+# (B, H, W, C_in, C_out): resnet_18's three decoder deconvs at B = 2,
+# deconv0 at bucket 8, an odd shape (odd W: the output is stored from
+# shared memory by the threads, not by TMA), and an even W with partial
+# pixel and channel tiles (TMA clips the output box)
 DECONV_SHAPES = [(2, 8, 8, 512, 256), (2, 16, 16, 256, 256),
-                 (2, 32, 32, 256, 256), (3, 5, 7, 16, 24)]
+                 (2, 32, 32, 256, 256), (8, 8, 8, 512, 256),
+                 (3, 5, 7, 16, 24), (2, 6, 10, 32, 200)]
 
 
 @pytest.mark.parametrize("B,H,W,cin,cout", DECONV_SHAPES)
