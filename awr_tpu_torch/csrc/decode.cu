@@ -1,66 +1,141 @@
-// AWR adaptive weighted decode for Hopper (sm_90a).
+// AWR adaptive weighted decode and its backward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel awr_tpu/ops/pallas_decode.py:_decode_kernel
-// (launched by decode_pallas). Same function as the plain PyTorch
-// awr_tpu_torch/ops/functional.py:offset2joint_softmax:
+// decode_kernel replaces the Pallas TPU kernel
+// awr_tpu/ops/pallas_decode.py:_decode_kernel (launched by decode_pallas).
+// Same function as the plain PyTorch
+// awr_tpu_torch/ops/functional.py:offset2joint_softmax, plus the softmax
+// statistics of offset2joint_softmax_stats:
 //
 //   mask   = nearest_resize(img) < 0.99            (per pixel)
 //   ht     = heatmap * mask
-//   w      = softmax_p(30 * ht)                    (per joint, over F*F pixels)
+//   l      = ht * 30                               (the masked logit)
+//   m      = max_p l,  s = sum_p exp(l - m)        (per joint: the stats)
+//   w      = exp(l - m) / s
 //   out[j] = sum_p w * (vec * mask * (k - k * ht) + (x, y, depth_raw))
 //
 // Inputs: offset (B, 4J, F, F) float32 or bfloat16, NCHW, contiguous (each
-// joint's heatmap and three offset planes are contiguous F*F runs, so the
-// loads below are coalesced); img (B, H, W) float32. Output (B, J, 3) float32.
+// joint's heatmap and three offset planes are contiguous F*F runs); img
+// (B, H, W) float32. Outputs: out (B, J, 3) float32 and stats (B, J, 2)
+// float32, (m, s) of each joint.
 //
-// Bound: HBM reads. The map is the whole payload: 4 bytes * F^2 * 4J plus
-// the F^2 resized depth pixels, about 0.93 MB a sample at F = 64, J = 14,
-// so about 30 MB at B = 32: about 9 us at the 3.35 TB/s of an H100 SXM. The
-// arithmetic is about 20 float operations per (sample, joint, pixel), two
-// orders of magnitude under the card's float32 rate at that byte count.
+// Bound: HBM reads. The map is the payload: 4 bytes * F^2 * 4J plus the
+// F^2 resized depth pixels, about 0.93 MB a sample at F = 64, J = 14 in
+// float32, so about 30 MB at B = 32: 8.9 us at the 3.35 TB/s of an H100
+// SXM. About 25 float operations per (sample, joint, pixel), two orders of
+// magnitude under the card's float32 rate at that byte count.
 //
-// Design: one block of 256 threads per (sample, joint), grid (B, J), which
-// is 448 blocks at B = 32 on 132 SMs. Pass 1 reads the joint's heatmap
-// plane and block-reduces the softmax max; pass 2 reads the heatmap again
-// (16 KB a block, served from L2) with the three offset planes and
-// accumulates the seven sums (sum e, three offset sums, three coordinate
-// sums), block-reduced and divided by sum e once. So the map leaves HBM
-// once; the nearest resize of the depth is fused into the index arithmetic
-// and its F^2 pixels are re-read from L2 by the J blocks of a sample.
+// Design. The host plan (ops/decode_cuda.py:decode_plan) gives each
+// (sample, joint) a thread-block cluster of C = 1, 2, 4 or 8 blocks of 256
+// threads, C > 1 only where B * J blocks would leave three quarters of the
+// 132 SMs idle: every block costs latency of its own, and on an H100 one
+// block a joint was measured faster than any cluster from B = 4 up
+// (PERF.md). Block rank r of a cluster takes rows [r F / C, (r + 1) F / C)
+// of the joint's four planes. One pass: a thread loads 4 consecutive
+// pixels of a row from each of the four planes (16-byte loads in float32,
+// 8-byte in bfloat16; scalar loads where F % 4 != 0), two such groups
+// issued before either is used, and folds them into an online softmax: a
+// running max m and, scaled to it, the sum s and the six weighted sums
+// (three offset, three coordinate), rescaled by exp(m_old - m_new) when a
+// group raises m. So each plane leaves HBM once, with no barrier between
+// the max and the sums (an online softmax rather than logits kept in
+// registers or shared memory: a block's share of a heatmap plane is up to
+// 64 KB at F = 128). The partials merge by the same rescale rule across
+// the warp, the block and, through distributed shared memory, the
+// cluster; rank 0 writes the joint and its (m, s). The max is order-free,
+// so m is bit-equal to the plain version's.
 //
-// Decode backward (decode_backward_kernel below). Replaces the XLA VJP of
-// the jnp decode that the JAX package's custom_vjp recomputes through
-// (awr_tpu/ops/decode.py:_bwd), not a Pallas kernel. Same function as
-// awr_tpu_torch/ops/functional.py:offset2joint_softmax_backward. With
-// m = mask, h = ht * m, w = softmax(30 h), dis = k - k h, v = vec * m,
-// c = (x, y, depth_raw) and g = dL/dout[b, j]:
+// The pixel loop does no division: a prologue builds three shared-memory
+// tables a block, the F source-row offsets ((y H) / F) W and source columns
+// (x W) / F of the nearest resize, and the F pixel-centre coordinates
+// 2 (i + 0.5) / F - 1, evaluated in double and rounded once as the plain
+// version's float64 mesh is (so bit-equal to it). A thread walks its
+// pixel groups with a (row, column) cursor advanced by additions.
 //
-//   dL/dvec_p[a] = m g_a w_p dis_p
-//   dL/dht_p     = m w_p (-k g.v_p + 30 (g.(v_p dis_p + c_p) - g.out))
+// decode_backward_kernel replaces the XLA VJP of the jnp decode that the
+// JAX package's custom_vjp recomputes through (awr_tpu/ops/decode.py:_bwd),
+// not a Pallas kernel. Same function as
+// awr_tpu_torch/ops/functional.py:offset2joint_softmax_backward given the
+// stats. With w from the forward's saved (m, s), dis = k - k ht,
+// v = vec * mask, c = (x, y, depth_raw) and g = dL/dout[b, j]:
 //
-// written as a (B, 4J, F, F) gradient in the map's dtype; background
-// pixels get 0. Bound: HBM, the map read once and its gradient written
-// once, 29.4 MB each way at B = 32, F = 64, J = 14 (float32): about
-// 17.5 us at 3.35 TB/s. Design: the forward's grid (B, J) and 256
-// threads. Passes 1 and 2 recompute the softmax max and sum from the
-// heatmap plane (the second read comes from L2); `out` is the forward's
-// saved output; pass 3 reads the four planes and writes the four
-// gradient planes, coalesced.
+//   dL/dvec_p[a] = mask g_a w_p dis_p
+//   dL/dht_p     = mask w_p (-k g.v_p + 30 (g.(v_p dis_p + c_p) - g.out))
+//
+// written as a (B, 4J, F, F) gradient in the map's dtype; background pixels
+// get exactly 0. Bound: HBM, the map read once and its gradient written
+// once, 29.4 MB each way at B = 32, F = 64, J = 14 (float32): 17.7 us at
+// 3.35 TB/s. Design: with the stats saved, the backward is an elementwise
+// map. Grid (B J, chunks): a block takes R rows (the plan's chunk: the
+// whole plane unless the grid would leave three quarters of the SMs idle)
+// of one joint's four planes, reads (m, s), g and out for that joint, and
+// writes the four gradient planes with the forward's tables, cursor and
+// 16-byte loads and stores. No reduction is left, and the softmax max and
+// sum are never recomputed.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+// pixel groups a thread loads before it uses any of them
+constexpr int kUnroll = 2;
 constexpr float kFgThreshold = 0.99f;
 constexpr float kSoftmaxTemp = 30.0f;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+
+// V consecutive map elements as float32: one 16-byte (float32) or 8-byte
+// (bfloat16) streaming load for V = 4.
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[4]) {
+  const float4 r = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = r.x;
+  v[1] = r.y;
+  v[2] = r.z;
+  v[3] = r.w;
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&v)[4]) {
+  // little-endian: element 2i is the low half of word i; a bfloat16 is
+  // the top 16 bits of the float32 it widens to
+  const uint2 r = __ldcs(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(r.x << 16);
+  v[1] = __uint_as_float(r.x & 0xffff0000u);
+  v[2] = __uint_as_float(r.y << 16);
+  v[3] = __uint_as_float(r.y & 0xffff0000u);
+}
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[1]) {
+  v[0] = to_float(*p);
+}
+
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 r;
+  r.x = *reinterpret_cast<const uint32_t*>(&lo);
+  r.y = *reinterpret_cast<const uint32_t*>(&hi);
+  __stcs(reinterpret_cast<uint2*>(p), r);
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&v)[1]) {
+  *p = v[0];
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&v)[1]) {
+  *p = __float2bfloat16(v[0]);
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -74,234 +149,390 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Pixel-center coordinate 2 * (i + 0.5) / F - 1, evaluated in double and
-// rounded once, as the plain version's float64 mesh is.
-__device__ __forceinline__ float mesh(int i, int F) {
-  return static_cast<float>(2.0 * (i + 0.5) / F - 1.0);
+// The nearest-resize and pixel-centre tables of one block, in dynamic
+// shared memory: mesh[F] float, col[F] int, row[F] int (3 F * 4 bytes;
+// decode_cuda.py:decode_plan's smem). For V = 4, F % 4 == 0, so col is
+// 16-byte aligned.
+struct Tables {
+  const float* mesh;
+  const int* col;
+  const int* row;
+};
+
+__device__ __forceinline__ Tables build_tables(int F, int H, int W) {
+  extern __shared__ float4 smem[];
+  float* mesh = reinterpret_cast<float*>(smem);
+  int* col = reinterpret_cast<int*>(mesh + F);
+  int* row = col + F;
+  for (int i = threadIdx.x; i < F; i += blockDim.x) {
+    // pixel-centre coordinate 2 (i + 0.5) / F - 1 in double, rounded once
+    mesh[i] = static_cast<float>(2.0 * (i + 0.5) / F - 1.0);
+    col[i] = (i * W) / F;
+    row[i] = ((i * H) / F) * W;
+  }
+  __syncthreads();
+  return Tables{mesh, col, row};
 }
 
-template <typename T>
+// A thread's place in its block's rows [y0, y1): it takes every
+// kThreads-th group of V pixels, row by row; `step` moves to the next
+// without dividing.
+template <int V>
+struct Cursor {
+  int y, x, dy, dx;
+  __device__ __forceinline__ Cursor(int F, int y0) {
+    const int groups = F / V;  // groups a row
+    y = y0 + threadIdx.x / groups;
+    x = (threadIdx.x % groups) * V;
+    dy = kThreads / groups;
+    dx = (kThreads % groups) * V;
+  }
+  __device__ __forceinline__ void step(int F) {
+    x += dx;
+    y += dy;
+    if (x >= F) {
+      x -= F;
+      ++y;
+    }
+  }
+};
+
+// One group of V pixels, loaded: the heatmap, the three offsets, the raw
+// depth and the two coordinates.
+template <int V>
+struct Group {
+  float h[V], vx[V], vy[V], vd[V], d[V], cx[V];
+  float cy;
+};
+
+template <int V, typename T>
+__device__ __forceinline__ void load_group(Group<V>& g, const T* ht,
+                                           const T* vx, size_t P,
+                                           const float* depth,
+                                           const Tables& tb, int F, int y,
+                                           int x) {
+  const int p = y * F + x;
+  load_vec(ht + p, g.h);
+  load_vec(vx + p, g.vx);
+  load_vec(vx + P + p, g.vy);
+  load_vec(vx + 2 * P + p, g.vd);
+  const float* drow = depth + tb.row[y];
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    g.d[i] = __ldg(drow + tb.col[x + i]);
+    g.cx[i] = tb.mesh[x + i];
+  }
+  g.cy = tb.mesh[y];
+}
+
+// Online-softmax partial: the max m of the logits seen and, scaled to
+// exp(-m), their sum s and the six weighted sums (three offset terms,
+// then the x, y and depth coordinates).
+struct Partial {
+  float m, s, a[6];
+};
+
+__device__ __forceinline__ Partial empty_partial() {
+  return Partial{-INFINITY, 0.f, {0.f, 0.f, 0.f, 0.f, 0.f, 0.f}};
+}
+
+// exp(m - to), the factor that rescales a partial of max m to max `to`;
+// 0 for an empty partial (m = -inf), even when `to` is -inf too.
+__device__ __forceinline__ float rescale(float m, float to) {
+  return m == -INFINITY ? 0.f : expf(m - to);
+}
+
+template <int V>
+__device__ __forceinline__ void accumulate(Partial& q, const Group<V>& g,
+                                           float k) {
+  float mask[V], ht[V], l[V];
+  float gm = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    mask[i] = g.d[i] < kFgThreshold ? 1.0f : 0.0f;
+    ht[i] = g.h[i] * mask[i];
+    l[i] = ht[i] * kSoftmaxTemp;  // spelled as the plain version's
+    gm = fmaxf(gm, l[i]);
+  }
+  if (gm > q.m) {
+    const float f = rescale(q.m, gm);
+    q.s *= f;
+#pragma unroll
+    for (int a = 0; a < 6; ++a) q.a[a] *= f;
+    q.m = gm;
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    const float e = expf(l[i] - q.m);
+    const float ed = e * (k - ht[i] * k);
+    q.s += e;
+    q.a[0] += g.vx[i] * mask[i] * ed;
+    q.a[1] += g.vy[i] * mask[i] * ed;
+    q.a[2] += g.vd[i] * mask[i] * ed;
+    q.a[3] += e * g.cx[i];
+    q.a[4] += e * g.cy;
+    q.a[5] += e * g.d[i];
+  }
+}
+
+// Merges the partials of a warp's lanes; every lane gets the result.
+__device__ __forceinline__ void warp_merge(Partial& q) {
+  const float m = warp_max(q.m);
+  const float f = rescale(q.m, m);
+  q.s = warp_sum(q.s * f);
+#pragma unroll
+  for (int a = 0; a < 6; ++a) q.a[a] = warp_sum(q.a[a] * f);
+  q.m = m;
+}
+
+__device__ __forceinline__ void put(float* dst, const Partial& q) {
+  dst[0] = q.m;
+  dst[1] = q.s;
+#pragma unroll
+  for (int a = 0; a < 6; ++a) dst[2 + a] = q.a[a];
+}
+
+__device__ __forceinline__ Partial get(const float* src) {
+  Partial q;
+  q.m = src[0];
+  q.s = src[1];
+#pragma unroll
+  for (int a = 0; a < 6; ++a) q.a[a] = src[2 + a];
+  return q;
+}
+
+// Grid B * J * C (1-D), clusters of C consecutive blocks; dynamic shared
+// memory 12 F bytes.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ offset, const float* __restrict__ img,
-                  float* __restrict__ out, int J, int F, int H, int W,
-                  float k) {
-  const int b = blockIdx.x;
-  const int j = blockIdx.y;
-  const int P = F * F;
+                  float* __restrict__ out, float* __restrict__ stats, int J,
+                  int F, int H, int W, int C, float k) {
+  const int bj = blockIdx.x / C;
+  const int rank = blockIdx.x - bj * C;
+  const int b = bj / J;
+  const int j = bj - b * J;
+  const size_t P = static_cast<size_t>(F) * F;
   const T* sample = offset + static_cast<size_t>(b) * 4 * J * P;
-  const T* ht_plane = sample + static_cast<size_t>(3 * J + j) * P;
-  const T* vx_plane = sample + static_cast<size_t>(3 * j) * P;
-  const T* vy_plane = vx_plane + P;
-  const T* vd_plane = vy_plane + P;
+  const T* ht = sample + (3 * J + j) * P;
+  const T* vx = sample + 3 * j * P;
   const float* depth = img + static_cast<size_t>(b) * H * W;
+  const Tables tb = build_tables(F, H, W);
 
-  __shared__ float partial[7][kWarps];
-  __shared__ float block_max;
+  const int y1 = (rank + 1) * F / C;
+  Cursor<V> cur(F, rank * F / C);
+  Partial q = empty_partial();
+  while (cur.y < y1) {
+    Group<V> g[kUnroll];
+    bool live[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      live[u] = cur.y < y1;
+      if (live[u]) load_group(g[u], ht, vx, P, depth, tb, F, cur.y, cur.x);
+      cur.step(F);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u)
+      if (live[u]) accumulate(q, g[u], k);
+  }
+
+  // warps, then the block's warps in warp 0
+  __shared__ float warp_part[kWarps][8];
+  __shared__ float block_part[8];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-
-  // Pass 1: max over pixels of the masked logit.
-  float m = -INFINITY;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int y = p / F;
-    const int x = p - y * F;
-    const float d = depth[static_cast<size_t>((y * H) / F) * W + (x * W) / F];
-    const float mask = d < kFgThreshold ? 1.0f : 0.0f;
-    const float ht = to_float(ht_plane[p]) * mask;
-    m = fmaxf(m, ht * kSoftmaxTemp);
-  }
-  m = warp_max(m);
-  if (lane == 0) partial[0][warp] = m;
+  warp_merge(q);
+  if (lane == 0) put(warp_part[warp], q);
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float v = partial[0][0];
-    for (int i = 1; i < kWarps; ++i) v = fmaxf(v, partial[0][i]);
-    block_max = v;
+  if (warp == 0) {
+    q = lane < kWarps ? get(warp_part[lane]) : empty_partial();
+    warp_merge(q);
+    if (lane == 0) put(block_part, q);
   }
-  __syncthreads();
-  m = block_max;
-
-  // Pass 2: unnormalized weighted sums.
-  float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int y = p / F;
-    const int x = p - y * F;
-    const float d = depth[static_cast<size_t>((y * H) / F) * W + (x * W) / F];
-    const float mask = d < kFgThreshold ? 1.0f : 0.0f;
-    const float ht = to_float(ht_plane[p]) * mask;
-    const float e = expf(ht * kSoftmaxTemp - m);
-    const float ed = e * (k - ht * k);
-    acc[0] += e;
-    acc[1] += to_float(vx_plane[p]) * mask * ed;
-    acc[2] += to_float(vy_plane[p]) * mask * ed;
-    acc[3] += to_float(vd_plane[p]) * mask * ed;
-    acc[4] += e * mesh(x, F);
-    acc[5] += e * mesh(y, F);
-    acc[6] += e * d;
-  }
-  __syncthreads();  // partial[0] is reused below
-#pragma unroll
-  for (int i = 0; i < 7; ++i) {
-    const float v = warp_sum(acc[i]);
-    if (lane == 0) partial[i][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < 3) {
-    const int a = threadIdx.x;
-    float s = 0.f, vec = 0.f, coord = 0.f;
-    for (int i = 0; i < kWarps; ++i) {
-      s += partial[0][i];
-      vec += partial[1 + a][i];
-      coord += partial[4 + a][i];
+  if (C > 1) {
+    // the cluster's blocks, in rank 0's warp 0, through distributed
+    // shared memory; the second sync keeps every block's shared memory
+    // alive until rank 0 has read it
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    if (rank == 0 && warp == 0) {
+      q = lane < C ? get(cluster.map_shared_rank(
+                         static_cast<float*>(block_part), lane))
+                   : empty_partial();
+      warp_merge(q);
     }
-    out[(static_cast<size_t>(b) * J + j) * 3 + a] = vec / s + coord / s;
+    cluster.sync();
+  }
+  if (rank == 0 && threadIdx.x == 0) {
+    float* o = out + static_cast<size_t>(bj) * 3;
+    o[0] = q.a[0] / q.s + q.a[3] / q.s;
+    o[1] = q.a[1] / q.s + q.a[4] / q.s;
+    o[2] = q.a[2] / q.s + q.a[5] / q.s;
+    stats[2 * static_cast<size_t>(bj)] = q.m;
+    stats[2 * static_cast<size_t>(bj) + 1] = q.s;
   }
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// Block-wide max and sum over kThreads threads; `scratch` holds kWarps
-// floats and is free again on return.
-__device__ __forceinline__ float block_max(float v, float* scratch) {
-  v = warp_max(v);
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = scratch[0];
-  for (int i = 1; i < kWarps; ++i) r = fmaxf(r, scratch[i]);
-  __syncthreads();
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* scratch) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) scratch[threadIdx.x / 32] = v;
-  __syncthreads();
-  float r = 0.f;
-  for (int i = 0; i < kWarps; ++i) r += scratch[i];
-  __syncthreads();
-  return r;
-}
-
-template <typename T>
+// Grid (B * J, ceil(F / R)); dynamic shared memory 12 F bytes.
+template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     decode_backward_kernel(const T* __restrict__ offset,
                            const float* __restrict__ img,
                            const float* __restrict__ out,
+                           const float* __restrict__ stats,
                            const float* __restrict__ grad_out,
                            T* __restrict__ grad, int J, int F, int H, int W,
-                           float k) {
-  const int b = blockIdx.x;
-  const int j = blockIdx.y;
-  const int P = F * F;
+                           int R, float k) {
+  const int bj = blockIdx.x;
+  const int b = bj / J;
+  const int j = bj - b * J;
+  const size_t P = static_cast<size_t>(F) * F;
   const size_t ht_off = (static_cast<size_t>(b) * 4 * J + 3 * J + j) * P;
   const size_t vx_off = (static_cast<size_t>(b) * 4 * J + 3 * j) * P;
   const float* depth = img + static_cast<size_t>(b) * H * W;
-  __shared__ float scratch[kWarps];
+  const Tables tb = build_tables(F, H, W);
 
-  // Pass 1: max over pixels of the masked logit.
-  float m = -INFINITY;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int y = p / F;
-    const int x = p - y * F;
-    const float d = depth[static_cast<size_t>((y * H) / F) * W + (x * W) / F];
-    const float mask = d < kFgThreshold ? 1.0f : 0.0f;
-    m = fmaxf(m, to_float(offset[ht_off + p]) * mask * kSoftmaxTemp);
-  }
-  m = block_max(m, scratch);
-
-  // Pass 2: the softmax denominator.
-  float s = 0.f;
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int y = p / F;
-    const int x = p - y * F;
-    const float d = depth[static_cast<size_t>((y * H) / F) * W + (x * W) / F];
-    const float mask = d < kFgThreshold ? 1.0f : 0.0f;
-    s += expf(to_float(offset[ht_off + p]) * mask * kSoftmaxTemp - m);
-  }
-  s = block_sum(s, scratch);
-
-  const float* gj = grad_out + (static_cast<size_t>(b) * J + j) * 3;
-  const float* oj = out + (static_cast<size_t>(b) * J + j) * 3;
+  const float m = stats[2 * static_cast<size_t>(bj)];
+  const float s = stats[2 * static_cast<size_t>(bj) + 1];
+  const float* gj = grad_out + static_cast<size_t>(bj) * 3;
+  const float* oj = out + static_cast<size_t>(bj) * 3;
   const float gx = gj[0], gy = gj[1], gd = gj[2];
   const float g_out = gx * oj[0] + gy * oj[1] + gd * oj[2];
 
-  // Pass 3: the four gradient planes.
-  for (int p = threadIdx.x; p < P; p += kThreads) {
-    const int y = p / F;
-    const int x = p - y * F;
-    const float d = depth[static_cast<size_t>((y * H) / F) * W + (x * W) / F];
-    const float mask = d < kFgThreshold ? 1.0f : 0.0f;
-    const float ht = to_float(offset[ht_off + p]) * mask;
-    const float w = expf(ht * kSoftmaxTemp - m) / s;
-    const float dis = k - ht * k;
-    const float vx = to_float(offset[vx_off + p]) * mask;
-    const float vy = to_float(offset[vx_off + P + p]) * mask;
-    const float vd = to_float(offset[vx_off + 2 * P + p]) * mask;
-    const float g_v = gx * vx + gy * vy + gd * vd;
-    const float g_term = gx * (vx * dis + mesh(x, F)) +
-                         gy * (vy * dis + mesh(y, F)) + gd * (vd * dis + d);
-    const float wd = w * dis * mask;
-    store(grad + vx_off + p, gx * wd);
-    store(grad + vx_off + P + p, gy * wd);
-    store(grad + vx_off + 2 * P + p, gd * wd);
-    store(grad + ht_off + p,
-          mask * w * (-k * g_v + kSoftmaxTemp * (g_term - g_out)));
+  const int y0 = blockIdx.y * R;
+  const int y1 = min(F, y0 + R);
+  Cursor<V> cur(F, y0);
+  while (cur.y < y1) {
+    Group<V> g[kUnroll];
+    bool live[kUnroll];
+    int at[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      live[u] = cur.y < y1;
+      at[u] = cur.y * F + cur.x;
+      if (live[u])
+        load_group(g[u], offset + ht_off, offset + vx_off, P, depth, tb, F,
+                   cur.y, cur.x);
+      cur.step(F);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (!live[u]) continue;
+      float dvx[V], dvy[V], dvd[V], dht[V];
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float mask = g[u].d[i] < kFgThreshold ? 1.0f : 0.0f;
+        const float ht = g[u].h[i] * mask;
+        const float w = expf(ht * kSoftmaxTemp - m) / s;
+        const float dis = k - ht * k;
+        const float vx = g[u].vx[i] * mask;
+        const float vy = g[u].vy[i] * mask;
+        const float vd = g[u].vd[i] * mask;
+        const float g_v = gx * vx + gy * vy + gd * vd;
+        const float g_term = gx * (vx * dis + g[u].cx[i]) +
+                             gy * (vy * dis + g[u].cy) +
+                             gd * (vd * dis + g[u].d[i]);
+        const float wd = w * dis * mask;
+        dvx[i] = gx * wd;
+        dvy[i] = gy * wd;
+        dvd[i] = gd * wd;
+        dht[i] = mask * w * (-k * g_v + kSoftmaxTemp * (g_term - g_out));
+      }
+      store_vec(grad + vx_off + at[u], dvx);
+      store_vec(grad + vx_off + P + at[u], dvy);
+      store_vec(grad + vx_off + 2 * P + at[u], dvd);
+      store_vec(grad + ht_off + at[u], dht);
+    }
   }
 }
 
-template <typename T>
-int launch_backward(const void* offset, const float* img, const float* out,
-                    const float* grad_out, void* grad, int B, int J, int F,
-                    int H, int W, float k, cudaStream_t stream) {
-  const dim3 grid(B, J);
-  decode_backward_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(offset), img, out, grad_out, static_cast<T*>(grad),
-      J, F, H, W, k);
-  return static_cast<int>(cudaGetLastError());
+size_t table_bytes(int F) { return 3 * static_cast<size_t>(F) * 4; }
+
+template <typename T, int V>
+int launch(const void* offset, const float* img, float* out, float* stats,
+           int B, int J, int F, int H, int W, int C, float k,
+           cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * J * C);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = table_bytes(F);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = C > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, decode_kernel<T, V>, static_cast<const T*>(offset), img, out,
+      stats, J, F, H, W, C, k);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-template <typename T>
-int launch(const void* offset, const float* img, float* out, int B, int J,
-           int F, int H, int W, float k, cudaStream_t stream) {
-  const dim3 grid(B, J);
-  decode_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(offset), img, out, J, F, H, W, k);
+template <typename T, int V>
+int launch_backward(const void* offset, const float* img, const float* out,
+                    const float* stats, const float* grad_out, void* grad,
+                    int B, int J, int F, int H, int W, int R, float k,
+                    cudaStream_t stream) {
+  const dim3 grid(B * J, (F + R - 1) / R);
+  decode_backward_kernel<T, V><<<grid, kThreads, table_bytes(F), stream>>>(
+      static_cast<const T*>(offset), img, out, stats, grad_out,
+      static_cast<T*>(grad), J, F, H, W, R, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Launchers: enqueue on `stream`, never synchronize, return
-// cudaGetLastError() (0 when the launch was accepted).
+// Launchers: enqueue on `stream`, never synchronize, return the launch's
+// CUDA error (0 when it was accepted). `C` is the cluster size of the
+// forward, `R` the rows of a backward block (decode_cuda.py:decode_plan).
+// F % 4 == 0 takes 4-pixel groups, which need map pointers aligned to 4
+// elements (the wrapper passes such pointers); other F, single pixels.
 extern "C" int awr_decode_f32(const void* offset, const float* img,
-                              float* out, int B, int J, int F, int H, int W,
-                              float k, cudaStream_t stream) {
-  return launch<float>(offset, img, out, B, J, F, H, W, k, stream);
+                              float* out, float* stats, int B, int J, int F,
+                              int H, int W, int C, float k,
+                              cudaStream_t stream) {
+  return F % 4 == 0
+             ? launch<float, 4>(offset, img, out, stats, B, J, F, H, W, C, k,
+                                stream)
+             : launch<float, 1>(offset, img, out, stats, B, J, F, H, W, C, k,
+                                stream);
 }
 
 extern "C" int awr_decode_bf16(const void* offset, const float* img,
-                               float* out, int B, int J, int F, int H, int W,
-                               float k, cudaStream_t stream) {
-  return launch<__nv_bfloat16>(offset, img, out, B, J, F, H, W, k, stream);
+                               float* out, float* stats, int B, int J, int F,
+                               int H, int W, int C, float k,
+                               cudaStream_t stream) {
+  return F % 4 == 0
+             ? launch<__nv_bfloat16, 4>(offset, img, out, stats, B, J, F, H,
+                                        W, C, k, stream)
+             : launch<__nv_bfloat16, 1>(offset, img, out, stats, B, J, F, H,
+                                        W, C, k, stream);
 }
 
 extern "C" int awr_decode_backward_f32(const void* offset, const float* img,
-                                       const float* out,
+                                       const float* out, const float* stats,
                                        const float* grad_out, void* grad,
                                        int B, int J, int F, int H, int W,
-                                       float k, cudaStream_t stream) {
-  return launch_backward<float>(offset, img, out, grad_out, grad, B, J, F, H,
-                                W, k, stream);
+                                       int R, float k, cudaStream_t stream) {
+  return F % 4 == 0
+             ? launch_backward<float, 4>(offset, img, out, stats, grad_out,
+                                         grad, B, J, F, H, W, R, k, stream)
+             : launch_backward<float, 1>(offset, img, out, stats, grad_out,
+                                         grad, B, J, F, H, W, R, k, stream);
 }
 
 extern "C" int awr_decode_backward_bf16(const void* offset, const float* img,
-                                        const float* out,
+                                        const float* out, const float* stats,
                                         const float* grad_out, void* grad,
                                         int B, int J, int F, int H, int W,
-                                        float k, cudaStream_t stream) {
-  return launch_backward<__nv_bfloat16>(offset, img, out, grad_out, grad, B,
-                                        J, F, H, W, k, stream);
+                                        int R, float k, cudaStream_t stream) {
+  return F % 4 == 0
+             ? launch_backward<__nv_bfloat16, 4>(offset, img, out, stats,
+                                                 grad_out, grad, B, J, F, H,
+                                                 W, R, k, stream)
+             : launch_backward<__nv_bfloat16, 1>(offset, img, out, stats,
+                                                 grad_out, grad, B, J, F, H,
+                                                 W, R, k, stream);
 }

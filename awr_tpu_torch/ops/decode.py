@@ -12,22 +12,24 @@ from awr_tpu_torch.ops.functional import offset2joint_softmax
 
 class DecodeCuda(torch.autograd.Function):
     """The CUDA decode with the CUDA decode backward as its gradient
-    (the JAX package's ``custom_vjp`` around its Pallas decode).  Only
-    the map gets a gradient: the train step never differentiates with
-    respect to the depth."""
+    (the JAX package's ``custom_vjp`` around its Pallas decode).  The
+    forward saves its softmax statistics, so the backward never
+    recomputes them.  Only the map gets a gradient: the train step never
+    differentiates with respect to the depth."""
 
     @staticmethod
     def forward(ctx, offset, img, kernel_size):
-        out = decode_cuda.offset2joint_softmax_cuda(offset, img, kernel_size)
-        ctx.save_for_backward(offset, img, out)
+        out, stats = decode_cuda.offset2joint_softmax_cuda(offset, img,
+                                                           kernel_size)
+        ctx.save_for_backward(offset, img, out, stats)
         ctx.kernel_size = kernel_size
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        offset, img, out = ctx.saved_tensors
+        offset, img, out, stats = ctx.saved_tensors
         grad = decode_cuda.offset2joint_softmax_backward_cuda(
-            offset, img, out, grad_out.contiguous(), ctx.kernel_size)
+            offset, img, out, stats, grad_out.contiguous(), ctx.kernel_size)
         return grad, None, None
 
 

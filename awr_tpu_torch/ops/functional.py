@@ -111,9 +111,30 @@ def joint2offset(jt_uvd: torch.Tensor, img: torch.Tensor,
     return torch.cat([vec.reshape(B, 3 * J, F, F), ht * mask], dim=1)
 
 
+def offset2joint_softmax_stats(offset: torch.Tensor,
+                               img: torch.Tensor) -> torch.Tensor:
+    """The decode's softmax statistics: (B, 4J, F, F) map + (B, H, W)
+    depth -> (B, J, 2), for each joint the max ``m`` over the F*F pixels
+    of the masked logit ``30 * heatmap * mask`` and ``s = sum exp(logit -
+    m)``, in float32 (a bfloat16 map is upcast) or float64.  The CUDA
+    decode writes them beside the joints, and its backward reads them."""
+    B, C, F, _ = offset.shape
+    J = C // 4
+    dtype = torch.promote_types(offset.dtype, torch.float32)
+    img_f = resize_nearest(img, F).to(dtype).reshape(B, 1, F * F)
+    mask = (img_f < FG_THRESHOLD).to(dtype)
+    # spelled as offset2joint_softmax spells the logit, so the max is
+    # bit-equal to the one its softmax takes
+    logit = (offset.to(dtype).reshape(B, C, F * F)[:, 3 * J:] * mask
+             * SOFTMAX_TEMP)
+    m = logit.amax(-1)
+    return torch.stack([m, torch.exp(logit - m[..., None]).sum(-1)], dim=-1)
+
+
 def offset2joint_softmax_backward(offset: torch.Tensor, img: torch.Tensor,
-                                  kernel_size: float,
-                                  grad_out: torch.Tensor) -> torch.Tensor:
+                                  kernel_size: float, grad_out: torch.Tensor,
+                                  stats: torch.Tensor | None = None
+                                  ) -> torch.Tensor:
     """Gradient of :func:`offset2joint_softmax` with respect to ``offset``
     for the cotangent ``grad_out`` (B, J, 3), in closed form; returned in
     the map's dtype.  With m the foreground mask, h = H m, w =
@@ -122,6 +143,9 @@ def offset2joint_softmax_backward(offset: torch.Tensor, img: torch.Tensor,
 
       dL/dV_p[a] = m g_a w_p dis_p
       dL/dH_p    = m w_p (-k g.v_p + 30 (g.(v_p dis_p + c_p) - g.out))
+
+    Given the forward's ``stats`` (:func:`offset2joint_softmax_stats`),
+    w = exp(30 h - max) / sum from them, as the CUDA backward takes it.
     """
     B, C, F, _ = offset.shape
     J = C // 4
@@ -136,7 +160,11 @@ def offset2joint_softmax_backward(offset: torch.Tensor, img: torch.Tensor,
     off = offset.to(dtype).reshape(B, C, P)
     vec = off[:, :3 * J].reshape(B, J, 3, P) * mask
     ht = off[:, 3 * J:] * mask[:, 0]  # (B, J, P)
-    w = torch.softmax(ht * SOFTMAX_TEMP, dim=-1)
+    if stats is None:
+        w = torch.softmax(ht * SOFTMAX_TEMP, dim=-1)
+    else:
+        st = stats.to(dtype)[..., None]  # (B, J, 2, 1)
+        w = torch.exp(ht * SOFTMAX_TEMP - st[:, :, 0]) / st[:, :, 1]
     dis = kernel_size - ht * kernel_size
     g = grad_out.to(dtype)[..., None]  # (B, J, 3, 1)
     term = vec * dis[:, :, None] + coords  # (B, J, 3, P)

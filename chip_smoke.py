@@ -6,9 +6,11 @@ GPU and check them.
 
 Builds the hand-written CUDA kernels from ``awr_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each against its plain
-PyTorch version on the card (the int8 GEMM also against
-``torch._int_mm``).  Then, with ``hourglass_1`` at full width (img 128,
-256 channels, 14 joints; seeded random weights), float32, TF32 off:
+PyTorch version on the card (the decode's softmax statistics too, the
+decode backward from the statistics the forward saved; the int8 GEMM
+also against ``torch._int_mm``).  Then, with ``hourglass_1`` at full
+width (img 128, 256 channels, 14 joints; seeded random weights),
+float32, TF32 off:
 
 - train: K raw-mode Adam steps (device crop, augmentation drawn by a
   seeded ``torch.Generator`` on the card, encode, forward, decode, loss,
@@ -25,9 +27,10 @@ PyTorch version on the card (the int8 GEMM also against
   kernels, held against an int8 Predictor on the CPU given the card's
   scales and against the fp32 joints;
 - time: CUDA-event times of the train step, the inference steps and each
-  kernel beside its plain version, its bound and its library call; then
-  ``torch.profiler`` breakdowns of the train step and of the int8
-  forward by kernel.
+  kernel beside its plain version, its bound and its library call (the
+  decode at B = 8, 32 and 256, with its launch plan, and its sweep over
+  cluster sizes and backward chunks); then ``torch.profiler`` breakdowns
+  of the train step and of the int8 forward by kernel.
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -60,7 +63,8 @@ from awr_tpu_torch.models.common import torch_default_init_
 from awr_tpu_torch.models.quant import QuantConv, quant_layers
 from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
-                                          offset2joint_softmax_backward)
+                                          offset2joint_softmax_backward,
+                                          offset2joint_softmax_stats)
 from awr_tpu_torch.serving import Predictor
 from awr_tpu_torch.training.optim import make_optimizer
 from awr_tpu_torch.training.steps import (make_raw_eval_step,
@@ -129,9 +133,12 @@ PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
 # max, exp, sum, distance, weight, three offset and three coordinate
 # products and sums); encode (three differences, squares and sums, sqrt,
 # heatmap, mask, three divides and four masked stores); decode backward
-# (the decode's two reduction passes again, then the weight, distance,
-# g.v, g.t and four gradient values)
-OPS = {"decode": 25, "encode": 20, "decode_backward": 45}
+# (mask, logit, the weight from the saved max and sum, distance, masked
+# offsets, g.v, g.t and four gradient values)
+OPS = {"decode": 25, "encode": 20, "decode_backward": 30}
+# the decode's softmax sum against the plain version's: float32 over F*F
+# pixels in another order (the max is bit-equal)
+STATS_SUM_RTOL = 1e-6
 
 
 def emit(obj) -> None:
@@ -251,20 +258,34 @@ def phase_kernels():
     shape (B = 32, F = 64, J = 14), synchronized after the launch."""
     off, img = decode_inputs(32)
     errs = {}
-    dec = {}
+    dec, stat = {}, {}
+    saved = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = off.to(dtype)
-        got = decode_cuda.offset2joint_softmax_cuda(x, img, KERNEL_SIZE)
+        got, stats = decode_cuda.offset2joint_softmax_cuda(x, img,
+                                                           KERNEL_SIZE)
         torch.cuda.synchronize()
+        saved[dtype] = got, stats
+        name = str(dtype).split(".")[1]
         want = offset2joint_softmax(x.float(), img, KERNEL_SIZE)
-        dec[str(dtype).split(".")[1]] = float((got - want).abs().max())
+        dec[name] = float((got - want).abs().max())
         if not torch.isfinite(got).all():
             raise AssertionError("decode kernel gave non-finite joints")
+        plain = offset2joint_softmax_stats(x, img)
+        stat[name] = {
+            "max_equal": bool(torch.equal(stats[..., 0], plain[..., 0])),
+            "sum_max_rel_err": float(((stats[..., 1] - plain[..., 1]).abs()
+                                      / plain[..., 1]).max())}
     errs["decode"] = dec["float32"]
     emit({"phase": "kernels", "kernel": "decode", "shape": list(off.shape),
-          "max_abs_err": dec, "atol": DECODE_ATOL})
+          "plan": decode_cuda.decode_plan(32, 14, 64)._asdict(),
+          "max_abs_err": dec, "atol": DECODE_ATOL, "stats": stat,
+          "stats_sum_rtol": STATS_SUM_RTOL})
     if max(dec.values()) > DECODE_ATOL:
         raise AssertionError(f"decode kernel disagrees: {dec}")
+    if not all(v["max_equal"] and v["sum_max_rel_err"] <= STATS_SUM_RTOL
+               for v in stat.values()):
+        raise AssertionError(f"decode statistics disagree: {stat}")
 
     jt, img = encode_inputs(32)
     got = encode_cuda.joint2offset_cuda(jt, img, KERNEL_SIZE, 64)
@@ -283,9 +304,10 @@ def phase_kernels():
     bwd = {}
     for dtype in (torch.float32, torch.bfloat16):
         x = off.to(dtype)
-        out = decode_cuda.offset2joint_softmax_cuda(x, img, KERNEL_SIZE)
+        # from the forward's saved output and statistics
+        out, stats = saved[dtype]
         got = decode_cuda.offset2joint_softmax_backward_cuda(
-            x, img, out, g, KERNEL_SIZE)
+            x, img, out, stats, g, KERNEL_SIZE)
         torch.cuda.synchronize()
         want = offset2joint_softmax_backward(x, img, KERNEL_SIZE, g).float()
         name = str(dtype).split(".")[1]
@@ -672,14 +694,17 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
 
     res = {}
     F, J = cfg.feature_size, cfg.jt_num
-    for B in (32, 256):
+    for B in (8, 32, 256):
         def dec_args():
             off, img = decode_inputs(B)
             return off, img, KERNEL_SIZE
+        # the map and the resized depth read, the joints and (max, sum)
+        # written
         res[("decode", B)] = kernel_times(
             decode_cuda.offset2joint_softmax_cuda, offset2joint_softmax,
-            dec_args, B * 4 * J * F * F * 4 + B * F * F * 4 + B * J * 3 * 4,
-            B * J * F * F * OPS["decode"], bw, flops)
+            dec_args, B * 4 * J * F * F * 4 + B * F * F * 4 + B * J * 3 * 4
+            + B * J * 2 * 4, B * J * F * F * OPS["decode"], bw, flops)
+        res[("decode", B)]["plan"] = decode_cuda.decode_plan(B, J, F)._asdict()
     B = 32
 
     def enc_args():
@@ -692,16 +717,22 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
 
     def bwd_args():
         off, img = decode_inputs(B)
-        out = decode_cuda.offset2joint_softmax_cuda(off, img, KERNEL_SIZE)
+        out, stats = decode_cuda.offset2joint_softmax_cuda(off, img,
+                                                           KERNEL_SIZE)
         g = torch.randn_like(out)
-        return off, img, out, g, KERNEL_SIZE
+        return off, img, out, stats, g, KERNEL_SIZE
 
-    def bwd_plain(off, img, out, g, k):
-        return offset2joint_softmax_backward(off, img, k, g)
+    def bwd_plain(off, img, out, stats, g, k):
+        return offset2joint_softmax_backward(off, img, k, g, stats)
+    # the map, the resized depth, out, (max, sum) and the cotangent read,
+    # the gradient written
     res[("decode_backward", B)] = kernel_times(
         decode_cuda.offset2joint_softmax_backward_cuda, bwd_plain, bwd_args,
-        2 * B * 4 * J * F * F * 4 + B * F * F * 4 + 2 * B * J * 3 * 4,
-        B * J * F * F * OPS["decode_backward"], bw, flops)
+        2 * B * 4 * J * F * F * 4 + B * F * F * 4 + 2 * B * J * 3 * 4
+        + B * J * 2 * 4, B * J * F * F * OPS["decode_backward"], bw, flops)
+    res[("decode_backward", B)]["plan"] = decode_cuda.decode_plan(
+        B, J, F)._asdict()
+    out["decode_plan_sweep"] = decode_plan_sweep(F, J)
     for (name, b), r in res.items():
         out[f"{name}_b{b}"] = r
     kernel_ms = sum(res[(k, 32)]["ms"] for k in ("decode", "encode",
@@ -712,6 +743,39 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
                            "the encode or the decode backward")
     emit(out)
     return {name: r for (name, b), r in res.items() if b == 32}
+
+
+def decode_plan_sweep(F, J):
+    """Device µs of the decode at each cluster size (B = 1, 4, 8, 32, 256)
+    and of its backward at each chunk of rows (B = 32, 256), on L2-cold
+    copies of foreground frames: the measurements behind
+    ``decode_plan``'s rule."""
+    sweep = {}
+    for B in (1, 4, 8, 32, 256):
+        off, img = (t[1:].contiguous() for t in decode_inputs(B + 1))
+        sets = [(off.clone(), img.clone())
+                for _ in range(max(2, -(-200_000_000 // off.nbytes)))]
+        base = decode_cuda.decode_plan(B, J, F)
+        fwd = {}
+        for c in decode_cuda.CLUSTERS:
+            plan = base._replace(cluster=c)
+            fwd[f"C{c}"] = 1e3 * device_ms(
+                lambda o, i: decode_cuda.offset2joint_softmax_cuda(
+                    o, i, KERNEL_SIZE, plan=plan), sets, 50)
+        sweep[f"decode_b{B}_us"] = dict(fwd, plan=base.cluster)
+        if B < 32:
+            continue
+        out, stats = decode_cuda.offset2joint_softmax_cuda(off, img,
+                                                           KERNEL_SIZE)
+        g = torch.randn_like(out)
+        bwd = {}
+        for rows in (8, 16, 32, 64):
+            plan = base._replace(rows=rows, chunks=-(-F // rows))
+            bwd[f"R{rows}"] = 1e3 * device_ms(
+                lambda o, i: decode_cuda.offset2joint_softmax_backward_cuda(
+                    o, i, out, stats, g, KERNEL_SIZE, plan=plan), sets, 50)
+        sweep[f"decode_backward_b{B}_us"] = dict(bwd, plan=base.rows)
+    return sweep
 
 
 def gemm_shapes(pred_q, img):

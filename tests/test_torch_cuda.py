@@ -1,7 +1,7 @@
-"""The hand-written CUDA kernels (decode, decode backward, encode, int8
-GEMM, int8 deconv) against their plain PyTorch versions, on the card, and
-an int8 resnet_18 request through them.  Needs no JAX; skips without a
-GPU.  On a machine with one:
+"""The hand-written CUDA kernels (decode and its softmax statistics,
+decode backward, encode, int8 GEMM, int8 deconv) against their plain
+PyTorch versions, on the card, and an int8 resnet_18 request through
+them.  Needs no JAX; skips without a GPU.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
@@ -17,7 +17,8 @@ from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
 from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
-                                          offset2joint_softmax_backward)
+                                          offset2joint_softmax_backward,
+                                          offset2joint_softmax_stats)
 from awr_tpu_torch.serving import Predictor
 
 pytestmark = pytest.mark.cuda
@@ -32,17 +33,25 @@ def cuda():
     return torch.device("cuda")
 
 
-SHAPES = [(1, 8), (3, 16), (32, 64)]
+# (B, F, H): the decode's maps at the cluster sizes its plan takes
+# (decode_plan: 4 at B = 1, 2 at B = 2, 1 from B = 3; every size runs in
+# test_decode_kernel_every_cluster_size), F from 8 to 128 (H = F: the
+# identity resize of resnet ds 1), and F = 10 (F % 4 != 0: scalar loads)
+# with H = 25, no multiple of F
+SHAPES = [(1, 8, 16), (3, 16, 32), (16, 16, 32), (8, 64, 128),
+          (32, 64, 128), (2, 32, 64), (4, 128, 128), (1, 10, 25)]
+ENCODE_SHAPES = [(1, 8), (3, 16), (32, 64)]
 J = 14
 
 
-def inputs(cuda, B, F, dtype=torch.float32):
-    """A seeded (B, 4J, F, F) map, (B, 2F, 2F) depth with one
-    all-background frame, and (B, J, 3) joints."""
+def inputs(cuda, B, F, dtype=torch.float32, H=None):
+    """A seeded (B, 4J, F, F) map, (B, H, H) depth (H = 2F by default)
+    with one all-background frame, and (B, J, 3) joints."""
     rng = np.random.RandomState(B * F)
-    H = 2 * F
+    H = H or 2 * F
     img = np.ones((B, H, H), np.float32)
-    img[:, H // 4:3 * H // 4, H // 4:] = rng.uniform(-1, 0.9, (H // 2, 3 * H // 4))
+    img[:, H // 4:3 * H // 4, H // 4:] = rng.uniform(
+        -1, 0.9, (3 * H // 4 - H // 4, H - H // 4))
     img[0] = 1.0
     off = torch.from_numpy(rng.randn(B, 4 * J, F, F).astype(np.float32) * 0.3)
     jt = torch.from_numpy(rng.uniform(-0.8, 0.8, (B, J, 3)).astype(np.float32))
@@ -51,9 +60,9 @@ def inputs(cuda, B, F, dtype=torch.float32):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,F", SHAPES)
-def test_decode_kernel_matches_plain(cuda, B, F, dtype):
-    off, img, _ = inputs(cuda, B, F, dtype)
+@pytest.mark.parametrize("B,F,H", SHAPES)
+def test_decode_kernel_matches_plain(cuda, B, F, H, dtype):
+    off, img, _ = inputs(cuda, B, F, dtype, H)
     before = decode_cuda.LAUNCHES
     got = decode_offsets(off, img, 0.4)
     torch.cuda.synchronize()
@@ -63,7 +72,71 @@ def test_decode_kernel_matches_plain(cuda, B, F, dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
 
 
-@pytest.mark.parametrize("B,F", SHAPES)
+def assert_stats_match(got, want):
+    """The max is order-free and spelled as the plain version spells it:
+    bit-equal.  The sum: float32 over F*F pixels in another order."""
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(got[..., 0], want[..., 0])
+    torch.testing.assert_close(got[..., 1], want[..., 1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,H", SHAPES)
+def test_decode_kernel_stats_match_plain(cuda, B, F, H, dtype):
+    off, img, _ = inputs(cuda, B, F, dtype, H)
+    out, stats = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
+    torch.cuda.synchronize()
+    # one reduction order: a second launch gives the same bits
+    again = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
+    assert torch.equal(out, again[0]) and torch.equal(stats, again[1])
+    assert_stats_match(stats, offset2joint_softmax_stats(off, img))
+    # the all-background frame: every logit 0
+    assert torch.equal(stats[0, :, 1], torch.full_like(stats[0, :, 1], F * F))
+
+
+@pytest.mark.parametrize("cluster", decode_cuda.CLUSTERS)
+def test_decode_kernel_every_cluster_size(cuda, cluster):
+    """The forward at each cluster size and the backward at row chunks of
+    1, 3 (a short last chunk) and 16 rows, whatever the plan picks."""
+    B, F = 3, 16
+    off, img, _ = inputs(cuda, B, F)
+    base = decode_cuda.decode_plan(B, J, F)
+    out, stats = decode_cuda.offset2joint_softmax_cuda(
+        off, img, 0.4, plan=base._replace(cluster=cluster))
+    torch.testing.assert_close(out, offset2joint_softmax(off, img, 0.4),
+                               rtol=0, atol=2e-5)
+    assert_stats_match(stats, offset2joint_softmax_stats(off, img))
+    g = torch.randn(B, J, 3, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(cluster))
+    want = offset2joint_softmax_backward(off, img, 0.4, g)
+    for rows in (1, 3, 16):
+        got = decode_cuda.offset2joint_softmax_backward_cuda(
+            off, img, out, stats, g, 0.4,
+            plan=base._replace(rows=rows, chunks=-(-F // rows)))
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+
+
+def test_decode_unaligned_map(cuda):
+    """A map whose base is not 16-byte aligned is copied for the vector
+    loads; the gradient comes back in a fresh tensor."""
+    off, img, _ = inputs(cuda, 2, 16)
+    base = torch.empty(off.numel() + 1, device=cuda)
+    x = base[1:].view(off.shape)
+    x.copy_(off)
+    assert x.data_ptr() % 16 != 0
+    out, stats = decode_cuda.offset2joint_softmax_cuda(x, img, 0.4)
+    torch.testing.assert_close(out, offset2joint_softmax(off, img, 0.4),
+                               rtol=0, atol=2e-5)
+    g = torch.ones_like(out)
+    want = offset2joint_softmax_backward(off, img, 0.4, g)
+    got = decode_cuda.offset2joint_softmax_backward_cuda(x, img, out, stats,
+                                                         g, 0.4)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("B,F", ENCODE_SHAPES)
 def test_encode_kernel_matches_plain(cuda, B, F):
     _, img, jt = inputs(cuda, B, F)
     before = encode_cuda.LAUNCHES
@@ -84,15 +157,17 @@ BACKWARD_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,F", SHAPES)
-def test_decode_backward_kernel_matches_plain(cuda, B, F, dtype):
-    off, img, _ = inputs(cuda, B, F, dtype)
+@pytest.mark.parametrize("B,F,H", SHAPES)
+def test_decode_backward_kernel_matches_plain(cuda, B, F, H, dtype):
+    """The backward from the forward's saved statistics, against the
+    plain closed form with its own softmax."""
+    off, img, _ = inputs(cuda, B, F, dtype, H)
     g = torch.randn(B, J, 3, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(B))
-    out = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
+    out, stats = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
     before = decode_cuda.BACKWARD_LAUNCHES
-    got = decode_cuda.offset2joint_softmax_backward_cuda(off, img, out, g,
-                                                         0.4)
+    got = decode_cuda.offset2joint_softmax_backward_cuda(off, img, out, stats,
+                                                         g, 0.4)
     torch.cuda.synchronize()
     assert decode_cuda.BACKWARD_LAUNCHES == before + 1
     want = offset2joint_softmax_backward(off, img, 0.4, g)
@@ -103,11 +178,16 @@ def test_decode_backward_kernel_matches_plain(cuda, B, F, dtype):
 
 
 def test_decode_offsets_has_a_kernel_gradient(cuda):
+    """One forward launch and one backward launch, the backward from the
+    statistics the forward saved."""
     off, img, _ = inputs(cuda, 3, 16)
     x = off.clone().requires_grad_()
     before = (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES)
     out = decode_offsets(x, img, 0.4)
     assert out.grad_fn is not None
+    saved = out.grad_fn.saved_tensors
+    assert len(saved) == 4
+    assert_stats_match(saved[3], offset2joint_softmax_stats(off, img))
     g = torch.randn_like(out)
     out.backward(g)
     torch.cuda.synchronize()

@@ -15,6 +15,8 @@ from awr_tpu.geometry import uvd2xyz_np as jax_uvd2xyz
 from awr_tpu.geometry import xyz2uvd_np as jax_xyz2uvd
 from awr_tpu.ops import joint2offset as jax_encode
 from awr_tpu.ops import offset2joint_softmax as jax_decode
+from awr_tpu.ops.functional import FG_THRESHOLD as JAX_FG_THRESHOLD
+from awr_tpu.ops.functional import SOFTMAX_TEMP as JAX_SOFTMAX_TEMP
 from awr_tpu.ops.functional import resize_nearest as jax_resize
 from awr_tpu.ops.pallas_decode import decode_pallas
 from awr_tpu.ops.pallas_encode import encode_pallas
@@ -28,6 +30,7 @@ from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
                                           offset2joint_softmax_backward,
+                                          offset2joint_softmax_stats,
                                           resize_nearest)
 
 J = 14
@@ -192,10 +195,14 @@ BACKWARD_TOL = {np.float64: dict(rtol=1e-10, atol=1e-10),
                 np.float32: dict(rtol=1e-5, atol=4e-6)}
 
 
+@pytest.mark.parametrize("with_stats", [False, True])
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
 @pytest.mark.parametrize("frame", ["mixed", "background", "foreground"])
 @pytest.mark.parametrize("F", [8, 16])
-def test_decode_backward_matches_jax_vjp_and_autograd(F, frame, dtype):
+def test_decode_backward_matches_jax_vjp_and_autograd(F, frame, dtype,
+                                                      with_stats):
+    """The closed form, from its own softmax or (as the CUDA backward
+    takes it) from the forward's saved statistics."""
     off, img = decode_inputs(F, frame, seed=2)
     off, img = off.astype(dtype), img.astype(dtype)
     g = np.random.RandomState(F).randn(2, J, 3).astype(dtype)
@@ -203,8 +210,9 @@ def test_decode_backward_matches_jax_vjp_and_autograd(F, frame, dtype):
         want = jax_decode_vjp(off, img, g)
     off_t = torch.from_numpy(np.ascontiguousarray(off.transpose(0, 3, 1, 2)))
     img_t = torch.from_numpy(img)
+    stats = offset2joint_softmax_stats(off_t, img_t) if with_stats else None
     got = offset2joint_softmax_backward(off_t, img_t, KERNEL,
-                                        torch.from_numpy(g)).numpy()
+                                        torch.from_numpy(g), stats).numpy()
     leaf = off_t.clone().requires_grad_()
     offset2joint_softmax(leaf, img_t, KERNEL).backward(torch.from_numpy(g))
     tol = dict(BACKWARD_TOL[dtype])
@@ -231,17 +239,21 @@ def test_decode_backward_bf16_map_gives_bf16_gradient():
 def test_decode_autograd_function_wiring(monkeypatch):
     """The CUDA path's autograd.Function, with its two kernels replaced by
     their plain versions so it runs here: the output has a grad_fn, the
-    backward goes through the backward kernel's wrapper once with the
-    forward's saved output, and the gradient is autograd's through the
+    forward's softmax statistics are saved, the backward goes
+    through the backward kernel's wrapper once with the forward's saved
+    output and statistics, and the gradient is autograd's through the
     plain forward.  (tests/test_torch_cuda.py runs the kernels.)"""
-    calls = []
+    calls, saved = [], []
 
-    def backward(offset, img, out, grad_out, k):
-        calls.append(out)
-        return offset2joint_softmax_backward(offset, img, k, grad_out)
+    def forward(offset, img, k):
+        saved.append(offset2joint_softmax_stats(offset, img))
+        return offset2joint_softmax(offset, img, k), saved[-1]
 
-    monkeypatch.setattr(decode_cuda, "offset2joint_softmax_cuda",
-                        offset2joint_softmax)
+    def backward(offset, img, out, stats, grad_out, k):
+        calls.append((out, stats))
+        return offset2joint_softmax_backward(offset, img, k, grad_out, stats)
+
+    monkeypatch.setattr(decode_cuda, "offset2joint_softmax_cuda", forward)
     monkeypatch.setattr(decode_cuda, "offset2joint_softmax_backward_cuda",
                         backward)
     off, img = decode_inputs(8, "mixed")
@@ -252,7 +264,8 @@ def test_decode_autograd_function_wiring(monkeypatch):
     out = decode.DecodeCuda.apply(leaf, img_t, KERNEL)
     assert out.grad_fn is not None
     out.backward(g)
-    assert len(calls) == 1 and torch.equal(calls[0], out.detach())
+    assert len(calls) == 1 and torch.equal(calls[0][0], out.detach())
+    assert len(saved) == 1 and calls[0][1] is saved[0]
     ref = off_t.clone().requires_grad_()
     offset2joint_softmax(ref, img_t, KERNEL).backward(g)
     torch.testing.assert_close(leaf.grad, ref.grad, rtol=1e-5,
@@ -260,6 +273,48 @@ def test_decode_autograd_function_wiring(monkeypatch):
     with torch.inference_mode():
         assert decode.DecodeCuda.apply(off_t, img_t, KERNEL).grad_fn is None
     assert len(calls) == 1
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("frame", ["mixed", "background", "foreground"])
+@pytest.mark.parametrize("F", [8, 16])
+def test_decode_stats_match_float64(F, frame, dtype):
+    """(max, sum) of the masked softmax logits against float64 numpy on
+    the JAX package's own nearest resize and thresholds.  float32: the
+    max is one rounding of 30 h; the sum adds F^2 terms exp(l - m), each
+    within a few ulps of |l - m| <= 60 (|h| < 2 here), so rtol 1e-5."""
+    off, img = decode_inputs(F, frame, seed=3)
+    img_f = np.asarray(jax_resize(jnp.asarray(img), F), np.float64)
+    mask = (img_f < JAX_FG_THRESHOLD).reshape(2, F * F, 1)
+    logit = (off.astype(np.float64).reshape(2, F * F, 4 * J)[..., 3 * J:]
+             * mask * JAX_SOFTMAX_TEMP)
+    m = logit.max(axis=1)
+    want = np.stack([m, np.exp(logit - m[:, None]).sum(axis=1)], axis=-1)
+    off_t = torch.from_numpy(
+        np.ascontiguousarray(off.transpose(0, 3, 1, 2)).astype(dtype))
+    got = offset2joint_softmax_stats(off_t, torch.from_numpy(img)).numpy()
+    assert got.shape == (2, J, 2) and got.dtype == dtype
+    rtol = 1e-12 if dtype == np.float64 else 1e-5
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=0)
+    if frame == "background":
+        # every logit is 0: the max is 0, the sum counts the pixels
+        np.testing.assert_array_equal(got, np.tile([0.0, F * F], (2, J, 1)))
+
+
+def test_decode_stats_max_is_the_softmax_max():
+    """The statistics' max is bit-equal to the one torch.softmax inside
+    offset2joint_softmax subtracts (same spelling of the logit), and the
+    weights they give match the softmax's."""
+    off, img = decode_inputs(16, "mixed", seed=4)
+    off_t = torch.from_numpy(np.ascontiguousarray(off.transpose(0, 3, 1, 2)))
+    img_t = torch.from_numpy(img)
+    stats = offset2joint_softmax_stats(off_t, img_t)
+    mask = (resize_nearest(img_t, 16) < 0.99).float().reshape(2, 1, 256)
+    logit = off_t.reshape(2, 4 * J, 256)[:, 3 * J:] * mask * 30.0
+    assert torch.equal(stats[..., 0], logit.max(-1).values)
+    w = torch.exp(logit - stats[..., :1]) / stats[..., 1:]
+    torch.testing.assert_close(w, torch.softmax(logit, -1), rtol=1e-6,
+                               atol=1e-7)
 
 
 @pytest.mark.parametrize("size", [5, 8, 16, 24])
