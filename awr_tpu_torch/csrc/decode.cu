@@ -24,25 +24,22 @@
 // SXM. About 25 float operations per (sample, joint, pixel), two orders of
 // magnitude under the card's float32 rate at that byte count.
 //
-// Design. The host plan (ops/decode_cuda.py:decode_plan) gives each
-// (sample, joint) a thread-block cluster of C = 1, 2, 4 or 8 blocks of 256
-// threads, C > 1 only where B * J blocks would leave three quarters of the
-// 132 SMs idle: every block costs latency of its own, and on an H100 one
-// block a joint was measured faster than any cluster from B = 4 up
-// (PERF.md). Block rank r of a cluster takes rows [r F / C, (r + 1) F / C)
-// of the joint's four planes. One pass: a thread loads 4 consecutive
-// pixels of a row from each of the four planes (16-byte loads in float32,
-// 8-byte in bfloat16; scalar loads where F % 4 != 0), two such groups
-// issued before either is used, and folds them into an online softmax: a
-// running max m and, scaled to it, the sum s and the six weighted sums
-// (three offset, three coordinate), rescaled by exp(m_old - m_new) when a
-// group raises m. So each plane leaves HBM once, with no barrier between
-// the max and the sums (an online softmax rather than logits kept in
-// registers or shared memory: a block's share of a heatmap plane is up to
-// 64 KB at F = 128). The partials merge by the same rescale rule across
-// the warp, the block and, through distributed shared memory, the
-// cluster; rank 0 writes the joint and its (m, s). The max is order-free,
-// so m is bit-equal to the plain version's.
+// Design. One block of 256 threads for each (sample, joint), grid B * J.
+// One pass: a thread loads 4 consecutive pixels of a row from each of the
+// four planes (16-byte loads in float32, 8-byte in bfloat16; scalar loads
+// where F % 4 != 0), two such groups issued before either is used, and
+// folds them into an online softmax: a running max m and, scaled to it,
+// the sum s and the six weighted sums (three offset, three coordinate),
+// rescaled by exp(m_old - m_new) when a group raises m. So each plane
+// leaves HBM once, with no barrier between the max and the sums (an
+// online softmax rather than logits kept in registers or shared memory:
+// a heatmap plane is 64 KB at F = 128). The partials merge by the same
+// rescale rule across the warp and then the block; thread 0 writes the
+// joint and its (m, s). The max is order-free, so m is bit-equal to the
+// plain version's. Splitting a joint over a thread-block cluster merged
+// through distributed shared memory was measured and dropped: every block
+// costs latency of its own, so a cluster lost from B = 4 up and gained a
+// few per cent only at B = 1, below the smallest serving bucket (PERF.md).
 //
 // The pixel loop does no division: a prologue builds three shared-memory
 // tables a block, the F source-row offsets ((y H) / F) W and source columns
@@ -65,20 +62,16 @@
 // get exactly 0. Bound: HBM, the map read once and its gradient written
 // once, 29.4 MB each way at B = 32, F = 64, J = 14 (float32): 17.7 us at
 // 3.35 TB/s. Design: with the stats saved, the backward is an elementwise
-// map. Grid (B J, chunks): a block takes R rows (the plan's chunk: the
-// whole plane unless the grid would leave three quarters of the SMs idle)
-// of one joint's four planes, reads (m, s), g and out for that joint, and
-// writes the four gradient planes with the forward's tables, cursor and
-// 16-byte loads and stores. No reduction is left, and the softmax max and
-// sum are never recomputed.
+// map. Grid B * J: a block takes the four planes of one (sample, joint)
+// (smaller row chunks a block were measured slower at B = 32), reads
+// (m, s), g and out for that joint, and writes the four gradient planes
+// with the forward's tables, cursor and 16-byte loads and stores. No
+// reduction is left, and the softmax max and sum are never recomputed.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -150,8 +143,8 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The nearest-resize and pixel-centre tables of one block, in dynamic
-// shared memory: mesh[F] float, col[F] int, row[F] int (3 F * 4 bytes;
-// decode_cuda.py:decode_plan's smem). For V = 4, F % 4 == 0, so col is
+// shared memory: mesh[F] float, col[F] int, row[F] int (3 F * 4 bytes).
+// For V = 4, F % 4 == 0, so col is
 // 16-byte aligned.
 struct Tables {
   const float* mesh;
@@ -174,15 +167,15 @@ __device__ __forceinline__ Tables build_tables(int F, int H, int W) {
   return Tables{mesh, col, row};
 }
 
-// A thread's place in its block's rows [y0, y1): it takes every
-// kThreads-th group of V pixels, row by row; `step` moves to the next
-// without dividing.
+// A thread's place in its block's F x F plane: it takes every kThreads-th
+// group of V pixels, row by row; `step` moves to the next without
+// dividing.
 template <int V>
 struct Cursor {
   int y, x, dy, dx;
-  __device__ __forceinline__ Cursor(int F, int y0) {
+  __device__ __forceinline__ explicit Cursor(int F) {
     const int groups = F / V;  // groups a row
-    y = y0 + threadIdx.x / groups;
+    y = threadIdx.x / groups;
     x = (threadIdx.x % groups) * V;
     dy = kThreads / groups;
     dx = (kThreads % groups) * V;
@@ -301,15 +294,13 @@ __device__ __forceinline__ Partial get(const float* src) {
   return q;
 }
 
-// Grid B * J * C (1-D), clusters of C consecutive blocks; dynamic shared
-// memory 12 F bytes.
+// Grid B * J; dynamic shared memory 12 F bytes.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ offset, const float* __restrict__ img,
                   float* __restrict__ out, float* __restrict__ stats, int J,
-                  int F, int H, int W, int C, float k) {
-  const int bj = blockIdx.x / C;
-  const int rank = blockIdx.x - bj * C;
+                  int F, int H, int W, float k) {
+  const int bj = blockIdx.x;
   const int b = bj / J;
   const int j = bj - b * J;
   const size_t P = static_cast<size_t>(F) * F;
@@ -319,15 +310,14 @@ __global__ void __launch_bounds__(kThreads)
   const float* depth = img + static_cast<size_t>(b) * H * W;
   const Tables tb = build_tables(F, H, W);
 
-  const int y1 = (rank + 1) * F / C;
-  Cursor<V> cur(F, rank * F / C);
+  Cursor<V> cur(F);
   Partial q = empty_partial();
-  while (cur.y < y1) {
+  while (cur.y < F) {
     Group<V> g[kUnroll];
     bool live[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      live[u] = cur.y < y1;
+      live[u] = cur.y < F;
       if (live[u]) load_group(g[u], ht, vx, P, depth, tb, F, cur.y, cur.x);
       cur.step(F);
     }
@@ -338,7 +328,6 @@ __global__ void __launch_bounds__(kThreads)
 
   // warps, then the block's warps in warp 0
   __shared__ float warp_part[kWarps][8];
-  __shared__ float block_part[8];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   warp_merge(q);
@@ -347,23 +336,8 @@ __global__ void __launch_bounds__(kThreads)
   if (warp == 0) {
     q = lane < kWarps ? get(warp_part[lane]) : empty_partial();
     warp_merge(q);
-    if (lane == 0) put(block_part, q);
   }
-  if (C > 1) {
-    // the cluster's blocks, in rank 0's warp 0, through distributed
-    // shared memory; the second sync keeps every block's shared memory
-    // alive until rank 0 has read it
-    cg::cluster_group cluster = cg::this_cluster();
-    cluster.sync();
-    if (rank == 0 && warp == 0) {
-      q = lane < C ? get(cluster.map_shared_rank(
-                         static_cast<float*>(block_part), lane))
-                   : empty_partial();
-      warp_merge(q);
-    }
-    cluster.sync();
-  }
-  if (rank == 0 && threadIdx.x == 0) {
+  if (threadIdx.x == 0) {
     float* o = out + static_cast<size_t>(bj) * 3;
     o[0] = q.a[0] / q.s + q.a[3] / q.s;
     o[1] = q.a[1] / q.s + q.a[4] / q.s;
@@ -373,7 +347,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Grid (B * J, ceil(F / R)); dynamic shared memory 12 F bytes.
+// Grid B * J; dynamic shared memory 12 F bytes.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     decode_backward_kernel(const T* __restrict__ offset,
@@ -382,7 +356,7 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ stats,
                            const float* __restrict__ grad_out,
                            T* __restrict__ grad, int J, int F, int H, int W,
-                           int R, float k) {
+                           float k) {
   const int bj = blockIdx.x;
   const int b = bj / J;
   const int j = bj - b * J;
@@ -399,16 +373,14 @@ __global__ void __launch_bounds__(kThreads)
   const float gx = gj[0], gy = gj[1], gd = gj[2];
   const float g_out = gx * oj[0] + gy * oj[1] + gd * oj[2];
 
-  const int y0 = blockIdx.y * R;
-  const int y1 = min(F, y0 + R);
-  Cursor<V> cur(F, y0);
-  while (cur.y < y1) {
+  Cursor<V> cur(F);
+  while (cur.y < F) {
     Group<V> g[kUnroll];
     bool live[kUnroll];
     int at[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      live[u] = cur.y < y1;
+      live[u] = cur.y < F;
       at[u] = cur.y * F + cur.x;
       if (live[u])
         load_group(g[u], offset + ht_off, offset + vx_off, P, depth, tb, F,
@@ -450,89 +422,69 @@ size_t table_bytes(int F) { return 3 * static_cast<size_t>(F) * 4; }
 
 template <typename T, int V>
 int launch(const void* offset, const float* img, float* out, float* stats,
-           int B, int J, int F, int H, int W, int C, float k,
-           cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(B * J * C);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = table_bytes(F);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = C > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, decode_kernel<T, V>, static_cast<const T*>(offset), img, out,
-      stats, J, F, H, W, C, k);
-  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+           int B, int J, int F, int H, int W, float k, cudaStream_t stream) {
+  decode_kernel<T, V><<<B * J, kThreads, table_bytes(F), stream>>>(
+      static_cast<const T*>(offset), img, out, stats, J, F, H, W, k);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int V>
 int launch_backward(const void* offset, const float* img, const float* out,
                     const float* stats, const float* grad_out, void* grad,
-                    int B, int J, int F, int H, int W, int R, float k,
+                    int B, int J, int F, int H, int W, float k,
                     cudaStream_t stream) {
-  const dim3 grid(B * J, (F + R - 1) / R);
-  decode_backward_kernel<T, V><<<grid, kThreads, table_bytes(F), stream>>>(
+  decode_backward_kernel<T, V><<<B * J, kThreads, table_bytes(F), stream>>>(
       static_cast<const T*>(offset), img, out, stats, grad_out,
-      static_cast<T*>(grad), J, F, H, W, R, k);
+      static_cast<T*>(grad), J, F, H, W, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // Launchers: enqueue on `stream`, never synchronize, return the launch's
-// CUDA error (0 when it was accepted). `C` is the cluster size of the
-// forward, `R` the rows of a backward block (decode_cuda.py:decode_plan).
-// F % 4 == 0 takes 4-pixel groups, which need map pointers aligned to 4
+// CUDA error (0 when it was accepted). F % 4 == 0 takes 4-pixel groups, which need map pointers aligned to 4
 // elements (the wrapper passes such pointers); other F, single pixels.
 extern "C" int awr_decode_f32(const void* offset, const float* img,
                               float* out, float* stats, int B, int J, int F,
-                              int H, int W, int C, float k,
-                              cudaStream_t stream) {
-  return F % 4 == 0
-             ? launch<float, 4>(offset, img, out, stats, B, J, F, H, W, C, k,
-                                stream)
-             : launch<float, 1>(offset, img, out, stats, B, J, F, H, W, C, k,
-                                stream);
+                              int H, int W, float k, cudaStream_t stream) {
+  return F % 4 == 0 ? launch<float, 4>(offset, img, out, stats, B, J, F, H,
+                                       W, k, stream)
+                    : launch<float, 1>(offset, img, out, stats, B, J, F, H,
+                                       W, k, stream);
 }
 
 extern "C" int awr_decode_bf16(const void* offset, const float* img,
                                float* out, float* stats, int B, int J, int F,
-                               int H, int W, int C, float k,
-                               cudaStream_t stream) {
+                               int H, int W, float k, cudaStream_t stream) {
   return F % 4 == 0
              ? launch<__nv_bfloat16, 4>(offset, img, out, stats, B, J, F, H,
-                                        W, C, k, stream)
+                                        W, k, stream)
              : launch<__nv_bfloat16, 1>(offset, img, out, stats, B, J, F, H,
-                                        W, C, k, stream);
+                                        W, k, stream);
 }
 
 extern "C" int awr_decode_backward_f32(const void* offset, const float* img,
                                        const float* out, const float* stats,
                                        const float* grad_out, void* grad,
                                        int B, int J, int F, int H, int W,
-                                       int R, float k, cudaStream_t stream) {
+                                       float k, cudaStream_t stream) {
   return F % 4 == 0
              ? launch_backward<float, 4>(offset, img, out, stats, grad_out,
-                                         grad, B, J, F, H, W, R, k, stream)
+                                         grad, B, J, F, H, W, k, stream)
              : launch_backward<float, 1>(offset, img, out, stats, grad_out,
-                                         grad, B, J, F, H, W, R, k, stream);
+                                         grad, B, J, F, H, W, k, stream);
 }
 
 extern "C" int awr_decode_backward_bf16(const void* offset, const float* img,
                                         const float* out, const float* stats,
                                         const float* grad_out, void* grad,
                                         int B, int J, int F, int H, int W,
-                                        int R, float k, cudaStream_t stream) {
+                                        float k, cudaStream_t stream) {
   return F % 4 == 0
              ? launch_backward<__nv_bfloat16, 4>(offset, img, out, stats,
                                                  grad_out, grad, B, J, F, H,
-                                                 W, R, k, stream)
+                                                 W, k, stream)
              : launch_backward<__nv_bfloat16, 1>(offset, img, out, stats,
                                                  grad_out, grad, B, J, F, H,
-                                                 W, R, k, stream);
+                                                 W, k, stream);
 }

@@ -8,15 +8,13 @@ The kernels' library is built and loaded at the first call
 :func:`awr_tpu_torch.ops.functional.offset2joint_softmax` (with
 :func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_stats`) and
 :func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_backward`.
-:func:`decode_plan` chooses each launch's grid from the shapes alone, on
-the host.
+Both kernels give each (sample, joint) one block.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import torch
 
@@ -33,57 +31,13 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # walks the kernels' cursor with them).
 THREADS = 256
 UNROLL = 2
-# SMs of an H100 SXM.
-SMS = 132
-# Cluster sizes the forward may take (8 is the portable maximum).
-CLUSTERS = (1, 2, 4, 8)
-# The forward takes the smallest cluster that gives its grid at least
-# this many blocks, and the backward halves its chunk of rows until its
-# grid has this many.  Measured on an H100 (chip_smoke.py's plan sweep,
-# PERF.md): each block costs latency of its own, so from B = 4 (56
-# blocks of one joint) up, one block a joint beats every cluster, and a
-# whole plane a backward block beats smaller chunks; at B = 1 (14 blocks)
-# a cluster gains a few per cent.
-FILL_BLOCKS = SMS // 4
-# Shared memory a block may use on Hopper.
-SMEM_LIMIT = 232_448
-
-
-class DecodePlan(NamedTuple):
-    cluster: int  # C: blocks of the forward's cluster on one (sample, joint)
-    rows: int     # R: rows of one (sample, joint) a backward block takes
-    chunks: int   # backward blocks a (sample, joint): ceil(F / R)
-    vec: int      # pixels a thread loads at once: 4, or 1 where F % 4 != 0
-    smem: int     # dynamic shared memory a block (the index tables), bytes
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def decode_plan(B: int, J: int, F: int) -> DecodePlan:
-    """The launches of the decode and its backward on a (B, 4J, F, F) map.
-
-    The forward gives each (sample, joint) a cluster of C blocks, the
-    smallest C that makes at least ``FILL_BLOCKS`` blocks (8 where none
-    does), with every block keeping a row.  A backward block takes a whole
-    plane, its rows halved while the grid has fewer than ``FILL_BLOCKS``
-    blocks, down to one row."""
-    vec = 4 if F % 4 == 0 else 1
-    cluster = next((c for c in CLUSTERS if B * J * c >= FILL_BLOCKS),
-                   CLUSTERS[-1])
-    cluster = min(cluster, max(c for c in CLUSTERS if c <= F))
-    rows = F
-    while rows > 1 and B * J * _cdiv(F, rows) < FILL_BLOCKS:
-        rows //= 2
-    return DecodePlan(cluster, rows, _cdiv(F, rows), vec, 12 * F)
 
 
 @functools.lru_cache(maxsize=None)
 def _launcher(dtype):
     fn = getattr(kernels.load("decode"), f"awr_decode_{_DTYPES[dtype]}")
-    # offset, img, out, stats, B, J, F, H, W, C, kernel_size, stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    # offset, img, out, stats, B, J, F, H, W, kernel_size, stream
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -93,9 +47,9 @@ def _launcher(dtype):
 def _backward_launcher(dtype):
     fn = getattr(kernels.load("decode"),
                  f"awr_decode_backward_{_DTYPES[dtype]}")
-    # offset, img, out, stats, grad_out, grad, B, J, F, H, W, R,
-    # kernel_size, stream
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    # offset, img, out, stats, grad_out, grad, B, J, F, H, W, kernel_size,
+    # stream
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -139,27 +93,24 @@ def _stream(device) -> int:
 
 
 def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
-                              kernel_size: float,
-                              plan: DecodePlan | None = None):
+                              kernel_size: float):
     """(B, 4J, F, F) float32/bfloat16 map + (B, H, W) float32 depth, both
     contiguous on one CUDA device -> ((B, J, 3) float32 joints, (B, J, 2)
     float32 softmax statistics (max, sum), which
-    :func:`offset2joint_softmax_backward_cuda` takes).  ``plan`` replaces
-    :func:`decode_plan`'s (for measuring other grids)."""
+    :func:`offset2joint_softmax_backward_cuda` takes)."""
     global LAUNCHES
     _check_inputs(offset, img)
     B, C, F, _ = offset.shape
     J = C // 4
     H, W = img.shape[1:]
-    plan = plan or decode_plan(B, J, F)
     offset = _aligned(offset)
     out = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
     stats = torch.empty((B, J, 2), dtype=torch.float32, device=offset.device)
     launch = _launcher(offset.dtype)
     with torch.cuda.device(offset.device):
         err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
-                     stats.data_ptr(), B, J, F, H, W, plan.cluster,
-                     float(kernel_size), _stream(offset.device))
+                     stats.data_ptr(), B, J, F, H, W, float(kernel_size),
+                     _stream(offset.device))
     if err != 0:
         raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -170,15 +121,12 @@ def offset2joint_softmax_backward_cuda(offset: torch.Tensor,
                                        img: torch.Tensor, out: torch.Tensor,
                                        stats: torch.Tensor,
                                        grad_out: torch.Tensor,
-                                       kernel_size: float,
-                                       plan: DecodePlan | None = None
-                                       ) -> torch.Tensor:
+                                       kernel_size: float) -> torch.Tensor:
     """Gradient of the decode with respect to the map: the forward's
     inputs, its (B, J, 3) float32 output ``out`` and (B, J, 2) float32
     ``stats`` (both from :func:`offset2joint_softmax_cuda`), and the
     cotangent ``grad_out`` (B, J, 3) float32, all contiguous on one CUDA
-    device -> (B, 4J, F, F) in the map's dtype.  ``plan`` replaces
-    :func:`decode_plan`'s (for measuring other grids)."""
+    device -> (B, 4J, F, F) in the map's dtype."""
     global BACKWARD_LAUNCHES
     _check_inputs(offset, img)
     B, C, F, _ = offset.shape
@@ -187,14 +135,13 @@ def offset2joint_softmax_backward_cuda(offset: torch.Tensor,
     _check_joint_tensor("out", out, (B, J, 3), offset.device)
     _check_joint_tensor("stats", stats, (B, J, 2), offset.device)
     _check_joint_tensor("grad_out", grad_out, (B, J, 3), offset.device)
-    plan = plan or decode_plan(B, J, F)
     offset = _aligned(offset)
     grad = torch.empty_like(offset)
     launch = _backward_launcher(offset.dtype)
     with torch.cuda.device(offset.device):
         err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
                      stats.data_ptr(), grad_out.data_ptr(), grad.data_ptr(),
-                     B, J, F, H, W, plan.rows, float(kernel_size),
+                     B, J, F, H, W, float(kernel_size),
                      _stream(offset.device))
     if err != 0:
         raise RuntimeError(f"decode backward kernel launch failed: CUDA "

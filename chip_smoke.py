@@ -28,8 +28,7 @@ float32, TF32 off:
   scales and against the fp32 joints;
 - time: CUDA-event times of the train step, the inference steps and each
   kernel beside its plain version, its bound and its library call (the
-  decode at B = 8, 32 and 256, with its launch plan, and its sweep over
-  cluster sizes and backward chunks); then ``torch.profiler`` breakdowns
+  decode at B = 8, 32 and 256); then ``torch.profiler`` breakdowns
   of the train step and of the int8 forward by kernel.
 
 Each path runs with every launch counter set to 0 just before it and is
@@ -278,7 +277,6 @@ def phase_kernels():
                                       / plain[..., 1]).max())}
     errs["decode"] = dec["float32"]
     emit({"phase": "kernels", "kernel": "decode", "shape": list(off.shape),
-          "plan": decode_cuda.decode_plan(32, 14, 64)._asdict(),
           "max_abs_err": dec, "atol": DECODE_ATOL, "stats": stat,
           "stats_sum_rtol": STATS_SUM_RTOL})
     if max(dec.values()) > DECODE_ATOL:
@@ -704,7 +702,6 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
             decode_cuda.offset2joint_softmax_cuda, offset2joint_softmax,
             dec_args, B * 4 * J * F * F * 4 + B * F * F * 4 + B * J * 3 * 4
             + B * J * 2 * 4, B * J * F * F * OPS["decode"], bw, flops)
-        res[("decode", B)]["plan"] = decode_cuda.decode_plan(B, J, F)._asdict()
     B = 32
 
     def enc_args():
@@ -730,9 +727,6 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
         decode_cuda.offset2joint_softmax_backward_cuda, bwd_plain, bwd_args,
         2 * B * 4 * J * F * F * 4 + B * F * F * 4 + 2 * B * J * 3 * 4
         + B * J * 2 * 4, B * J * F * F * OPS["decode_backward"], bw, flops)
-    res[("decode_backward", B)]["plan"] = decode_cuda.decode_plan(
-        B, J, F)._asdict()
-    out["decode_plan_sweep"] = decode_plan_sweep(F, J)
     for (name, b), r in res.items():
         out[f"{name}_b{b}"] = r
     kernel_ms = sum(res[(k, 32)]["ms"] for k in ("decode", "encode",
@@ -743,39 +737,6 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
                            "the encode or the decode backward")
     emit(out)
     return {name: r for (name, b), r in res.items() if b == 32}
-
-
-def decode_plan_sweep(F, J):
-    """Device µs of the decode at each cluster size (B = 1, 4, 8, 32, 256)
-    and of its backward at each chunk of rows (B = 32, 256), on L2-cold
-    copies of foreground frames: the measurements behind
-    ``decode_plan``'s rule."""
-    sweep = {}
-    for B in (1, 4, 8, 32, 256):
-        off, img = (t[1:].contiguous() for t in decode_inputs(B + 1))
-        sets = [(off.clone(), img.clone())
-                for _ in range(max(2, -(-200_000_000 // off.nbytes)))]
-        base = decode_cuda.decode_plan(B, J, F)
-        fwd = {}
-        for c in decode_cuda.CLUSTERS:
-            plan = base._replace(cluster=c)
-            fwd[f"C{c}"] = 1e3 * device_ms(
-                lambda o, i: decode_cuda.offset2joint_softmax_cuda(
-                    o, i, KERNEL_SIZE, plan=plan), sets, 50)
-        sweep[f"decode_b{B}_us"] = dict(fwd, plan=base.cluster)
-        if B < 32:
-            continue
-        out, stats = decode_cuda.offset2joint_softmax_cuda(off, img,
-                                                           KERNEL_SIZE)
-        g = torch.randn_like(out)
-        bwd = {}
-        for rows in (8, 16, 32, 64):
-            plan = base._replace(rows=rows, chunks=-(-F // rows))
-            bwd[f"R{rows}"] = 1e3 * device_ms(
-                lambda o, i: decode_cuda.offset2joint_softmax_backward_cuda(
-                    o, i, out, stats, g, KERNEL_SIZE, plan=plan), sets, 50)
-        sweep[f"decode_backward_b{B}_us"] = dict(bwd, plan=base.rows)
-    return sweep
 
 
 def gemm_shapes(pred_q, img):

@@ -33,11 +33,9 @@ def cuda():
     return torch.device("cuda")
 
 
-# (B, F, H): the decode's maps at the cluster sizes its plan takes
-# (decode_plan: 4 at B = 1, 2 at B = 2, 1 from B = 3; every size runs in
-# test_decode_kernel_every_cluster_size), F from 8 to 128 (H = F: the
-# identity resize of resnet ds 1), and F = 10 (F % 4 != 0: scalar loads)
-# with H = 25, no multiple of F
+# (B, F, H): the decode's maps at B from 1 to 32 (bucket 8: a batch-1
+# request), F from 8 to 128 (H = F: the identity resize of resnet ds 1),
+# and F = 10 (F % 4 != 0: scalar loads) with H = 25, no multiple of F
 SHAPES = [(1, 8, 16), (3, 16, 32), (16, 16, 32), (8, 64, 128),
           (32, 64, 128), (2, 32, 64), (4, 128, 128), (1, 10, 25)]
 ENCODE_SHAPES = [(1, 8), (3, 16), (32, 64)]
@@ -92,29 +90,6 @@ def test_decode_kernel_stats_match_plain(cuda, B, F, H, dtype):
     assert_stats_match(stats, offset2joint_softmax_stats(off, img))
     # the all-background frame: every logit 0
     assert torch.equal(stats[0, :, 1], torch.full_like(stats[0, :, 1], F * F))
-
-
-@pytest.mark.parametrize("cluster", decode_cuda.CLUSTERS)
-def test_decode_kernel_every_cluster_size(cuda, cluster):
-    """The forward at each cluster size and the backward at row chunks of
-    1, 3 (a short last chunk) and 16 rows, whatever the plan picks."""
-    B, F = 3, 16
-    off, img, _ = inputs(cuda, B, F)
-    base = decode_cuda.decode_plan(B, J, F)
-    out, stats = decode_cuda.offset2joint_softmax_cuda(
-        off, img, 0.4, plan=base._replace(cluster=cluster))
-    torch.testing.assert_close(out, offset2joint_softmax(off, img, 0.4),
-                               rtol=0, atol=2e-5)
-    assert_stats_match(stats, offset2joint_softmax_stats(off, img))
-    g = torch.randn(B, J, 3, device=cuda,
-                    generator=torch.Generator(cuda).manual_seed(cluster))
-    want = offset2joint_softmax_backward(off, img, 0.4, g)
-    for rows in (1, 3, 16):
-        got = decode_cuda.offset2joint_softmax_backward_cuda(
-            off, img, out, stats, g, 0.4,
-            plan=base._replace(rows=rows, chunks=-(-F // rows)))
-        torch.testing.assert_close(got, want, rtol=0,
-                                   atol=1e-5 * float(want.abs().max()))
 
 
 def test_decode_unaligned_map(cuda):

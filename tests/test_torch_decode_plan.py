@@ -1,10 +1,10 @@
-"""The host side of the CUDA decode and decode backward, on the CPU: the
-launch chooser ``decode_plan`` at the serving and training batches and
+"""The launch of the CUDA decode and decode backward, on the CPU: both
+kernels give each (sample, joint) one block, whose threads walk its
+F x F planes with a cursor (``Cursor`` in ``csrc/decode.cu``).  A mirror
+of that cursor shows that the block visits every pixel exactly once, at
 the feature sizes of the port's models (resnet ds 4/2/1 at img 128: F =
-32/64/128; hourglass: 64), and a mirror of the kernels' pixel cursor
-(``Cursor`` in ``csrc/decode.cu``) and of its row split, showing that
-the blocks of a launch visit every pixel of a (sample, joint) exactly
-once."""
+32/64/128; hourglass: 64), the small maps of the card tests and a row
+that holds no whole 4-pixel group (F = 10: scalar loads)."""
 
 import collections
 
@@ -12,39 +12,21 @@ import pytest
 
 from awr_tpu_torch.ops import decode_cuda
 
-J = 14
-BATCHES = (1, 8, 32, 256)
-FEATURES = (32, 64, 128)
-# also F % 4 != 0 (scalar loads) and the small maps of the card tests
-ALL_FEATURES = (8, 10, 16) + FEATURES
+FEATURES = (8, 10, 16, 32, 64, 128)
 
 
-def cluster_rows(F, cluster):
-    """The rows [y0, y1) that each block rank of a forward cluster takes,
-    as the kernel computes them."""
-    return [(r * F // cluster, (r + 1) * F // cluster)
-            for r in range(cluster)]
-
-
-def chunk_rows(F, rows):
-    """The rows [y0, y1) of each backward block of one (sample, joint), as
-    the kernel computes them (grid.y = ceil(F / R))."""
-    return [(c * rows, min(F, (c + 1) * rows)) for c in range(-(-F // rows))]
-
-
-def walk(F, vec, y0, y1):
-    """Pixels (y, x) visited by the threads of one block taking rows
-    [y0, y1), stepped as the kernel's Cursor steps them, ``UNROLL``
-    groups at a time."""
+def walk(F, vec):
+    """Pixels (y, x) visited by the threads of one block, stepped as the
+    kernel's Cursor steps them, ``UNROLL`` groups at a time."""
     groups = F // vec
     threads, unroll = decode_cuda.THREADS, decode_cuda.UNROLL
     dy, dx = threads // groups, (threads % groups) * vec
     seen = []
     for t in range(threads):
-        y, x = y0 + t // groups, (t % groups) * vec
-        while y < y1:
+        y, x = t // groups, (t % groups) * vec
+        while y < F:
             for _ in range(unroll):
-                if y < y1:
+                if y < F:
                     seen.extend((y, x + i) for i in range(vec))
                 x, y = x + dx, y + dy
                 if x >= F:
@@ -52,83 +34,16 @@ def walk(F, vec, y0, y1):
     return seen
 
 
-def assert_each_pixel_once(F, vec, row_ranges):
-    seen = collections.Counter()
-    for y0, y1 in row_ranges:
-        assert 0 <= y0 < y1 <= F  # every block has a row
-        seen.update(walk(F, vec, y0, y1))
-    assert seen == collections.Counter(
+@pytest.mark.parametrize("F", FEATURES)
+def test_block_visits_every_pixel_once(F):
+    """4-pixel groups (16-byte loads) where F % 4 == 0, else single
+    pixels, as the kernels' launchers choose."""
+    vec = 4 if F % 4 == 0 else 1
+    assert collections.Counter(walk(F, vec)) == collections.Counter(
         (y, x) for y in range(F) for x in range(F))
 
 
-@pytest.mark.parametrize("F", ALL_FEATURES)
-@pytest.mark.parametrize("B", BATCHES)
-def test_cluster_blocks_split_the_rows(B, F):
-    """The C blocks of a forward cluster take disjoint row ranges that
-    cover the map, and their threads every pixel of them once."""
-    plan = decode_cuda.decode_plan(B, J, F)
-    assert plan.cluster in decode_cuda.CLUSTERS
-    rows = cluster_rows(F, plan.cluster)
-    assert len(rows) == plan.cluster
-    assert [r[0] for r in rows[1:]] == [r[1] for r in rows[:-1]]
-    assert rows[0][0] == 0 and rows[-1][1] == F
-    assert_each_pixel_once(F, plan.vec, rows)
-
-
-@pytest.mark.parametrize("F", ALL_FEATURES)
-@pytest.mark.parametrize("B", BATCHES)
-def test_backward_chunks_cover_every_pixel_once(B, F):
-    plan = decode_cuda.decode_plan(B, J, F)
-    rows = chunk_rows(F, plan.rows)
-    assert len(rows) == plan.chunks == -(-F // plan.rows)
-    assert 1 <= plan.rows <= F
-    assert_each_pixel_once(F, plan.vec, rows)
-
-
-@pytest.mark.parametrize("F", ALL_FEATURES)
-@pytest.mark.parametrize("B", BATCHES)
-def test_vector_loads_only_where_rows_hold_whole_groups(B, F):
-    plan = decode_cuda.decode_plan(B, J, F)
-    assert plan.vec == (4 if F % 4 == 0 else 1)
-
-
-@pytest.mark.parametrize("F", FEATURES)
-@pytest.mark.parametrize("B", BATCHES)
-def test_shared_memory_fits(B, F):
-    """The three index tables (3 F words) and the forward's static
-    reduction scratch (8 warps' and one block's partials of 8 floats)."""
-    plan = decode_cuda.decode_plan(B, J, F)
-    assert plan.smem == 3 * F * 4
-    assert plan.smem + (8 + 1) * 8 * 4 <= decode_cuda.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("F", FEATURES)
-@pytest.mark.parametrize("B", BATCHES)
-def test_grid_fills_the_sms(B, F):
-    """Wherever clusters of 8 could give a quarter of the SMs a block,
-    the forward's grid does, with the smallest cluster that does (a
-    larger one only splits a (sample, joint) further, and each block
-    costs latency of its own: measured, a block a joint is faster from
-    B = 4 up); the backward's grid does too."""
-    plan = decode_cuda.decode_plan(B, J, F)
-    fill = decode_cuda.FILL_BLOCKS
-    assert fill == decode_cuda.SMS // 4
-    if B * J * 8 >= fill:
-        assert B * J * plan.cluster >= fill
-        assert B * J * plan.chunks >= fill
-    if plan.cluster > 1:
-        assert B * J * plan.cluster // 2 < fill
-
-
-def test_plan_at_the_main_path_shapes():
-    """hourglass_1 and resnet_18 at ds 2 (F = 64): a batch-1 request is
-    bucket 8, the train step B = 32, the card-against-CPU train step B =
-    4.  From B = 4 up, one block a joint and a backward block a plane
-    (measured faster than any cluster or smaller chunk); at B = 1,
-    clusters of 4."""
-    for B in (4, 8, 32, 256):
-        plan = decode_cuda.decode_plan(B, J, 64)
-        assert (plan.cluster, plan.rows, plan.chunks) == (1, 64, 1)
-    assert decode_cuda.decode_plan(1, J, 64).cluster == 4
-    # a backward block's threads each take whole 4-pixel groups
+def test_threads_take_whole_groups_at_the_main_path_shape():
+    """hourglass_1 and resnet_18 at ds 2 (F = 64): each of a block's
+    threads takes the same number of 4-pixel groups."""
     assert (64 * 64 // 4) % decode_cuda.THREADS == 0
