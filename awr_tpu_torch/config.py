@@ -97,6 +97,9 @@ class Config:
                 f"compute_dtype {self.compute_dtype!r}: only float32 is "
                 "served")
 
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
     @property
     def feature_size(self) -> int:
         """Side of the dense 4J-channel output map."""
@@ -135,12 +138,10 @@ def hourglass_config(nstack: int = 1, **kw) -> Config:
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names
-    another.  Without a GPU, a caller that named no device gets an error,
-    never a silent CPU run."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device available; pass device='cpu' to run on "
-                "the CPU")
-        device = "cuda"
-    return torch.device(device)
+    another.  Without a GPU, CUDA (named or by default) is an error, never
+    a silent CPU run."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU")
+    return device

@@ -1,1 +1,2 @@
-"""Host crop parameters, device crop/normalize, synthetic frames."""
+"""Host crop parameters, device crop/normalize/augment, the synthetic
+dataset and the prefetching loader."""

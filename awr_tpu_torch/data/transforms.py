@@ -1,5 +1,5 @@
 """Host-side crop parameters for the device crop (reference
-loader.py:181-240)."""
+loader.py:181-240) and label normalization (nyu_loader.py:61-64)."""
 
 from __future__ import annotations
 
@@ -45,3 +45,14 @@ def crop_params_np(centers_uvd, cubes, paras, dsize: int):
     M[:, 2, 2] = 1.0
     return dict(us=us, ue=ue, vs=vs, ve=ve, zs=zs, ze=ze, sw=sw, sh=sh,
                 tx=tx, ty=ty, M=M.astype(np.float32))
+
+
+def normalize_labels(jt_xyz, jt_uvd_px, center_xyz, cube, img_size):
+    """Label normalization (reference nyu_loader.py:61-64): crop-pixel uv ->
+    [-1,1], depth -> cube-relative [-1,1], xyz -> center-relative half-cube
+    units.  ``jt_uvd_px`` is the M-transformed uv with raw mm depth."""
+    jt_uvd = jt_uvd_px.copy()
+    jt_uvd[:, :2] = jt_uvd[:, :2] / (img_size / 2.0) - 1
+    jt_uvd[:, 2] = (jt_uvd[:, 2] - center_xyz[2]) / (cube[2] / 2.0)
+    return (jt_xyz / (np.asarray(cube) / 2.0)).astype(np.float32), \
+        jt_uvd.astype(np.float32)

@@ -11,11 +11,17 @@ from awr_tpu_torch.models.hourglass import PoseNet
 from awr_tpu_torch.models.resnet import get_deconv_net
 
 
-def build_model(net: str, joint_num: int, downsample: int = 2) -> nn.Module:
+def build_model(net: str, joint_num: int, downsample: int = 2,
+                remat: bool = False) -> nn.Module:
+    """``remat``: recompute each hourglass stack's encoder-decoder, or each
+    ResNet block, in the backward pass instead of storing its
+    activations (``Config.remat``)."""
     if net.startswith("hourglass"):
         if downsample != 2:
             raise ValueError("the hourglass has output stride 2")
-        return PoseNet(nstack=int(net.split("_")[1]), joint_num=joint_num)
+        return PoseNet(nstack=int(net.split("_")[1]), joint_num=joint_num,
+                       remat=remat)
     if net.startswith("resnet"):
-        return get_deconv_net(int(net.split("_")[1]), joint_num, downsample)
+        return get_deconv_net(int(net.split("_")[1]), joint_num, downsample,
+                              remat=remat)
     raise ValueError(f"unknown net {net!r}")

@@ -7,11 +7,13 @@ running-stat update are the reference's.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
@@ -35,6 +37,43 @@ def max_pool_torch(kernel: int, stride: int, padding: int) -> nn.MaxPool2d:
     """``MaxPool2d(kernel, stride, padding)``: the padding is -inf, as the
     JAX package's ``max_pool_torch`` pads."""
     return nn.MaxPool2d(kernel, stride, padding)
+
+
+@contextlib.contextmanager
+def _batch_stats_frozen(module: nn.Module):
+    """Train-mode BatchNorm inside ``module`` normalizes with the batch's
+    statistics and leaves ``running_mean``, ``running_var`` and
+    ``num_batches_tracked`` as they were.  The BatchNorm calls stay the
+    same calls (momentum 0 makes the running update ``1 * old + 0 * new``,
+    exact), so they save the same tensors for the backward as the forward
+    that the checkpoint recomputes."""
+    bns = [m for m in module.modules()
+           if isinstance(m, nn.BatchNorm2d) and m.track_running_stats]
+    momenta = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 0.0
+    try:
+        yield
+    finally:
+        for m, momentum in zip(bns, momenta):
+            m.momentum = momentum
+            m.num_batches_tracked.sub_(1)
+
+
+def rematerialized(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` whose inner activations are recomputed in the
+    backward pass instead of stored (the JAX package's ``nn.remat``).
+
+    The recompute reruns train-mode BatchNorm; it runs with the running
+    statistics frozen, so they update once a step, as without remat (the
+    JAX package's functional ``batch_stats`` update once by
+    construction).  Outside training, or without autograd, this is
+    ``module(x)``."""
+    if not (module.training and torch.is_grad_enabled()):
+        return module(x)
+    return checkpoint(module, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _batch_stats_frozen(module)))
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

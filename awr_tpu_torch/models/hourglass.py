@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from awr_tpu_torch.models.common import (batch_norm, conv2d, max_pool,
+                                         rematerialized, torch_default_init_,
                                          upsample_nearest_2x)
 
 
@@ -87,9 +88,11 @@ class PoseNet(nn.Module):
     """(B, 1, H, W) depth -> (S, B, 4J, H/2, W/2) per-stack dense maps."""
 
     def __init__(self, nstack: int = 1, joint_num: int = 14,
-                 inp_dim: int = 256, increase: int = 0):
+                 inp_dim: int = 256, increase: int = 0, remat: bool = False):
         super().__init__()
         self.nstack = nstack
+        # recompute each stack's hourglass in the backward pass
+        self.remat = remat
         self.pre = nn.Sequential(
             ConvBlock(1, 64, 5, 1, bn=True, relu=True),
             Residual(64, 128),
@@ -113,11 +116,17 @@ class PoseNet(nn.Module):
         self.merge_features = nn.ModuleList(
             Merge(inp_dim, inp_dim) for _ in range(nstack - 1))
 
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """PyTorch's default init (the reference's) from ``generator``."""
+        torch_default_init_(self, generator)
+
     def forward(self, imgs):
         x = self.pre(imgs)
         preds = []
         for i in range(self.nstack):
-            feature = self.features[i](self.hgs[i](x))
+            hg = (rematerialized(self.hgs[i], x) if self.remat
+                  else self.hgs[i](x))
+            feature = self.features[i](hg)
             pred = torch.cat([self.outs_1[i](feature),
                               self.outs_2[i](feature)], dim=1)
             preds.append(pred)

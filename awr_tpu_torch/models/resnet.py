@@ -28,7 +28,8 @@ import torch
 from torch import nn
 
 from awr_tpu_torch.models.common import (batch_norm, he_fanout_normal_,
-                                         max_pool_torch, normal_001_)
+                                         max_pool_torch, normal_001_,
+                                         rematerialized)
 from awr_tpu_torch.models.quant import QuantConv, QuantConvTranspose
 
 # depth -> (block kind, blocks per stage) (reference resnet_deconv.py:9-13)
@@ -100,12 +101,15 @@ class ResNetDeconv(nn.Module):
 
     def __init__(self, joint_num: int = 14, block: str = "basic",
                  layers: Sequence[int] = (2, 2, 2, 2), downsample: int = 2,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 remat: bool = False):
         super().__init__()
         if downsample not in (1, 2, 4):
             raise ValueError(f"downsample must be 1, 2 or 4, got {downsample}")
         block_cls = BasicBlock if block == "basic" else Bottleneck
         self.downsample = downsample
+        # recompute each residual block in the backward pass
+        self.remat = remat
         self.pre = nn.Sequential(_conv(1, 64, 5), batch_norm(64), nn.ReLU(),
                                  max_pool_torch(3, 2, 1))
         in_ch = 64
@@ -143,17 +147,19 @@ class ResNetDeconv(nn.Module):
 
     def forward(self, x):
         x = self.pre(x)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
+        for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for block in stage:
+                x = rematerialized(block, x) if self.remat else block(x)
         x = self.deconv_layers(x)
         return torch.cat([self.final1(x), self.final2(x)], dim=1)
 
 
 def get_deconv_net(layers: int, joint_num: int, downsample: int,
-                   generator: Optional[torch.Generator] = None
-                   ) -> ResNetDeconv:
+                   generator: Optional[torch.Generator] = None,
+                   remat: bool = False) -> ResNetDeconv:
     """Factory matching reference resnet_deconv.py:8-16."""
     if layers not in RESNET_SPECS:
         raise ValueError(f"resnet depth must be one of {sorted(RESNET_SPECS)},"
                          f" got {layers}")
     block, sizes = RESNET_SPECS[layers]
-    return ResNetDeconv(joint_num, block, sizes, downsample, generator)
+    return ResNetDeconv(joint_num, block, sizes, downsample, generator, remat)

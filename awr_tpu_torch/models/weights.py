@@ -3,6 +3,9 @@
 - :func:`load_flax_variables`: the JAX package's ``{"params",
   "batch_stats"}`` tree (nested dicts of arrays) -> the port's module;
   the inverse of the JAX package's reference-``.pth`` importer.
+- :func:`load_flax_train_state`: a JAX ``TrainState`` (weights, and
+  optax Adam's ``mu``/``nu``/``count``) -> the port's module and a torch
+  Adam, so both packages can go on from one mid-training state;
 - :func:`load_flax_quant`: the JAX package's int8 ``quant`` collection
   (``{..: {"act_scale": ()}}``) -> the port's activation scales.
 - :func:`load_reference_state_dict`: a reference ``state_dict`` -> the
@@ -103,17 +106,18 @@ def _node(tree, path):
 
 
 def _tensor(x, perm=None):
-    a = np.asarray(x, np.float32)
+    """float64 arrays stay float64 (a float64 model loads them exactly);
+    anything else becomes float32."""
+    a = np.asarray(x)
+    a = a.astype(np.float64 if a.dtype == np.float64 else np.float32)
     if perm is not None:
         a = a.transpose(perm)
     return torch.tensor(a)
 
 
-def load_flax_variables(model: nn.Module, variables) -> nn.Module:
-    """Fill ``model`` (a PoseNet or ResNetDeconv) from the JAX package's
-    variables of the same net.  Raises if a weight is missing or has
-    another shape."""
-    params, stats = variables["params"], variables["batch_stats"]
+def _param_tensors(model: nn.Module, params) -> dict:
+    """The flax ``params`` tree (or a tree of its shape, e.g. an
+    optimizer moment) as the port's parameters, by state-dict key."""
     sd = {}
     for kind, key, path in _layout(model):
         p = _node(params, path)
@@ -122,15 +126,54 @@ def load_flax_variables(model: nn.Module, variables) -> nn.Module:
             if kind == "conv":
                 sd[f"{key}.bias"] = _tensor(p["bias"])
         else:
-            s = _node(stats, path)
             sd[f"{key}.weight"] = _tensor(p["scale"])
             sd[f"{key}.bias"] = _tensor(p["bias"])
+    return sd
+
+
+def load_flax_variables(model: nn.Module, variables) -> nn.Module:
+    """Fill ``model`` (a PoseNet or ResNetDeconv) from the JAX package's
+    variables of the same net.  Raises if a weight is missing or has
+    another shape."""
+    sd = _param_tensors(model, variables["params"])
+    stats = variables["batch_stats"]
+    for kind, key, path in _layout(model):
+        if kind == "bn":
+            s = _node(stats, path)
             sd[f"{key}.running_mean"] = _tensor(s["mean"])
             sd[f"{key}.running_var"] = _tensor(s["var"])
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
             sd[k] = v
     model.load_state_dict(sd)
+    return model
+
+
+def load_flax_train_state(model: nn.Module, optimizer: torch.optim.Adam,
+                          state) -> nn.Module:
+    """Carry a JAX package ``TrainState`` (``params``, ``batch_stats``,
+    ``opt_state``) into ``model`` and its ``torch.optim.Adam``: optax
+    Adam's ``mu``/``nu``/``count`` become each parameter's ``exp_avg``/
+    ``exp_avg_sq``/``step``, and the injected learning rate the groups'
+    ``lr``.  The two updates are then the same: lr * (m / (1 - b1^t)) /
+    (sqrt(v / (1 - b2^t)) + eps)."""
+    load_flax_variables(model, {"params": state.params,
+                                "batch_stats": state.batch_stats})
+    adam = [s for s in state.opt_state.inner_state
+            if all(hasattr(s, a) for a in ("mu", "nu", "count"))]
+    if len(adam) != 1:
+        raise ValueError("the optimizer state holds no optax Adam state")
+    mu = _param_tensors(model, adam[0].mu)
+    nu = _param_tensors(model, adam[0].nu)
+    step = float(np.asarray(adam[0].count))
+    lr = float(np.asarray(state.opt_state.hyperparams["learning_rate"]))
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(step, dtype=torch.float32),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    for group in optimizer.param_groups:
+        group["lr"] = lr
     return model
 
 

@@ -48,6 +48,22 @@ class Predictor:
         self.quant = None
 
     @classmethod
+    def from_checkpoint(cls, config: Config, ckpt_dir: str,
+                        epoch: Optional[int] = None, **kw):
+        """Load the weights of a Trainer checkpoint directory's epoch
+        (default the latest) through
+        :class:`~awr_tpu_torch.training.checkpoints.CheckpointManager`;
+        creates no optimizer, log file or workdir."""
+        from awr_tpu_torch.training.checkpoints import CheckpointManager
+
+        mgr = CheckpointManager(ckpt_dir)
+        try:
+            restored = mgr.restore(epoch)
+        finally:
+            mgr.close()
+        return cls(config, restored["model"], **kw)
+
+    @classmethod
     def from_torch(cls, config: Config, pth_path: str, **kw):
         """Load reference-trained weights from a ``.pth`` (the model's
         state dict, or a dict holding it under 'model')."""

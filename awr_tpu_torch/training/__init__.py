@@ -1,1 +1,2 @@
-"""Inference step (train and eval steps come with the encode kernel)."""
+"""Steps, optimizers, the Trainer, its checkpoints and stall watchdog, and
+the train, evaluate and supervise CLIs."""

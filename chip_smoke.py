@@ -29,7 +29,18 @@ float32, TF32 off:
 - time: CUDA-event times of the train step, the inference steps and each
   kernel beside its plain version, its bound and its library call (the
   decode at B = 8, 32 and 256); then ``torch.profiler`` breakdowns
-  of the train step and of the int8 forward by kernel.
+  of the train step and of the int8 forward by kernel;
+- trainer: the training CLI (``awr_tpu_torch.training.train.main``,
+  hourglass_1, raw mode, B = 32, 256 synthetic train and 64 test frames)
+  for 2 epochs with exact kernel launch counts, its checkpoints, a
+  resume to epoch 3, the evaluation CLI on the epoch-3 checkpoint
+  against the Trainer's own test MPE, ``Predictor.from_checkpoint``
+  against the Trainer's eval joints, then epochs 4-6: the Trainer's
+  train frames/s over warm epoch 5 beside the bare step's, and the
+  card's idle share over epoch 6 (``torch.profiler``);
+- train_resnet: raw resnet_18 train steps at B = 32 with exact launch
+  counts, one step on the card against the CPU, the same step with
+  ``remat`` against it without, and train frames/s.
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -41,9 +52,12 @@ the port only.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -65,25 +79,29 @@ from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
                                           offset2joint_softmax_backward,
                                           offset2joint_softmax_stats)
 from awr_tpu_torch.serving import Predictor
+from awr_tpu_torch.training import evaluate as evaluate_cli
+from awr_tpu_torch.training import train as train_cli
 from awr_tpu_torch.training.optim import make_optimizer
 from awr_tpu_torch.training.steps import (make_raw_eval_step,
                                           make_raw_train_step)
+from awr_tpu_torch.training.trainer import Trainer
 
 SEED = 0
 KERNEL_SIZE = 0.4
 # Each hand-written kernel on the paths: its wrapper module and launch
 # counter, its source, the TPU kernel (or XLA function) it replaces, and
-# the path of the slice that brought it (its "launches" in the summary).
+# the main path whose launches the summary reports (the Trainer's, for
+# the AWR kernels; the int8 requests', for the int8 ones).
 KERNELS = [
     dict(name="decode", route="cuda", module=decode_cuda, counter="LAUNCHES",
          source="awr_tpu_torch/csrc/decode.cu",
-         replaces="awr_tpu/ops/pallas_decode.py:69", path="train"),
+         replaces="awr_tpu/ops/pallas_decode.py:69", path="trainer"),
     dict(name="encode", route="cuda", module=encode_cuda, counter="LAUNCHES",
          source="awr_tpu_torch/csrc/encode.cu",
-         replaces="awr_tpu/ops/pallas_encode.py:40", path="train"),
+         replaces="awr_tpu/ops/pallas_encode.py:40", path="trainer"),
     dict(name="decode_backward", route="cuda", module=decode_cuda,
          counter="BACKWARD_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
-         replaces="awr_tpu/ops/decode.py:37", path="train"),
+         replaces="awr_tpu/ops/decode.py:37", path="trainer"),
     dict(name="int8_gemm", route="cuda", module=int8_cuda,
          counter="GEMM_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
          replaces="awr_tpu/ops/pallas_int8.py:190", path="serve_resnet_int8"),
@@ -124,6 +142,23 @@ CROSS_GRAD_COS = 0.999
 TRAIN_STEPS = 20
 TRAIN_BATCH = 32
 CROSS_BATCH = 4
+# the trainer phase's synthetic train and test sets: 8 and 2 steps an
+# epoch at B = 32
+TRAINER_FRAMES = 256
+TRAINER_TEST_FRAMES = 64
+# the Trainer's eval MPE of a checkpoint against the evaluation CLI's on
+# it: the same frames through the same model in one process
+EVAL_MPE_ATOL = 1e-4
+RESNET_STEPS = 10
+# the remat step's gradients and running statistics against the step
+# without it, relative to each tensor's max |value|: the same kernels on
+# the same inputs, except that some cuDNN kernels sum in another order
+# from one launch to the next (on the H100 the statistics inside
+# resnet_18's rematerialized blocks came out bit-equal, those of its last
+# deconv, which remat leaves alone, did not).  A second BatchNorm update
+# would move the statistics by 90 % of the first; the batch counters
+# must be equal
+REMAT_RTOL_OF_MAX = 1e-4
 # (HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s) from
 # NVIDIA's data sheets; dense int8 is half the with-sparsity figure
 PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
@@ -439,16 +474,17 @@ def phase_train(cfg, frames, joints, centers):
 
 def zero_grad_biases(model) -> set:
     """Conv biases whose gradient is 0 in exact arithmetic: every conv
-    output but the two prediction heads' reaches the loss only through
-    train-mode BatchNorms (skips, pooling and upsampling carry a channel
-    constant on; each BatchNorm subtracts it), so what is left of their
-    gradient is roundoff, whose direction means nothing."""
+    output but the two prediction heads' (the hourglass's ``outs_*``,
+    the ResNet's ``final*``) reaches the loss only through train-mode
+    BatchNorms (skips, pooling and upsampling carry a channel constant
+    on; each BatchNorm subtracts it), so what is left of their gradient
+    is roundoff, whose direction means nothing."""
     return {f"{n}.bias" for n, m in model.named_modules()
             if isinstance(m, torch.nn.Conv2d) and m.bias is not None
-            and not n.startswith(("outs_1.", "outs_2."))}
+            and not n.startswith(("outs_1.", "outs_2.", "final"))}
 
 
-def phase_cross_device(cfg, frames, joints, centers):
+def phase_cross_device(cfg, frames, joints, centers, phase="cross_device"):
     """One raw train step at B = 4 on the card and on the CPU, from the
     same weights and the same augmentation."""
     sd = new_model(cfg, "cpu").state_dict()
@@ -480,14 +516,16 @@ def phase_cross_device(cfg, frames, joints, centers):
                         / (gpu["grads"][n].norm() * g.norm()))
                for n, g in cpu["grads"].items() if n not in zero}
     worst = sorted(cosines, key=cosines.get)[:5]
-    emit({"phase": "cross_device", "batch": B, "loss_cuda": gpu["loss"],
+    emit({"phase": phase, "net": cfg.net, "batch": B,
+          "loss_cuda": gpu["loss"],
           "loss_cpu": cpu["loss"], "loss_rel_err": loss_rel,
           "bn_stats_max_abs_err": bn_err,
           "grad_cos_lowest": {n: cosines[n] for n in worst},
           "params_compared": len(cosines),
           "zero_grad_biases_skipped": len(zero),
-          "zero_grad_bias_grad_max": max(float(cpu["grads"][n].abs().max())
-                                         for n in zero),
+          "zero_grad_bias_grad_max": max(
+              (float(cpu["grads"][n].abs().max()) for n in zero),
+              default=None),
           "tolerances": {"loss_rtol": CROSS_LOSS_RTOL,
                          "bn_atol": CROSS_BN_ATOL,
                          "grad_cos": CROSS_GRAD_COS}})
@@ -736,7 +774,8 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
     out["library_note"] = ("no single PyTorch call computes the decode, "
                            "the encode or the decode backward")
     emit(out)
-    return {name: r for (name, b), r in res.items() if b == 32}
+    return ({name: r for (name, b), r in res.items() if b == 32},
+            out["train_fps_b32"])
 
 
 def gemm_shapes(pred_q, img):
@@ -916,6 +955,280 @@ def phase_profile(path, fn, args, steps=3, groups=()):
                "share": ms / busy_ms} for name, ms in rows[:25]]})
 
 
+@contextlib.contextmanager
+def trainer_marks(profile_epoch=None):
+    """While open, every ``Trainer.test`` records (epoch, MPE, AUC) and,
+    after a device sync, the wall time it starts; every ``Trainer.save``
+    the wall time it ends (synced); the staging thread each batch's
+    staging time, and the loop each wait for a staged batch (the wall
+    time it ends and how long it took).  With ``profile_epoch``, a CUDA
+    ``torch.profiler`` runs from the save of the epoch before it to the
+    test of that epoch: its train part."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from awr_tpu_torch.training import trainer as trainer_module
+
+    log = {"tests": [], "test_start": {}, "save_end": {}, "profile": None,
+           "stage": [], "wait": []}
+    test, save, stage = Trainer.test, Trainer.save, Trainer._stage
+    prefetch = trainer_module.prefetch_to_device
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def test_spy(self, epoch=0):
+        torch.cuda.synchronize()
+        log["test_start"][epoch] = time.perf_counter()
+        if epoch == profile_epoch:
+            prof.stop()
+            log["profile"] = prof
+        mpe, auc = test(self, epoch)
+        log["tests"].append((epoch, mpe, auc))
+        return mpe, auc
+
+    def save_spy(self, epoch):
+        save(self, epoch)
+        torch.cuda.synchronize()
+        log["save_end"][epoch] = time.perf_counter()
+        if profile_epoch is not None and epoch == profile_epoch - 1:
+            prof.start()
+
+    def stage_spy(self, raw, ds):
+        t0 = time.perf_counter()
+        out = stage(self, raw, ds)
+        log["stage"].append((time.perf_counter(), time.perf_counter() - t0))
+        return out
+
+    def prefetch_spy(iterator, fn, depth):
+        it = prefetch(iterator, fn, depth)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            log["wait"].append((time.perf_counter(),
+                                time.perf_counter() - t0))
+            yield item
+
+    Trainer.test, Trainer.save, Trainer._stage = test_spy, save_spy, stage_spy
+    trainer_module.prefetch_to_device = prefetch_spy
+    try:
+        yield log
+    finally:
+        Trainer.test, Trainer.save, Trainer._stage = test, save, stage
+        trainer_module.prefetch_to_device = prefetch
+
+
+def busy_ms(prof) -> float:
+    """Device time of the profiled kernels and copies."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+
+
+def device_gaps(prof, min_ms=1.0):
+    """The idle stretches of the device timeline between its first and
+    last profiled event: how many last at least ``min_ms``, their sum,
+    and the six longest with their offsets from the first event (ms);
+    and the first event's offset from the profiler's start (the lead-in,
+    ms)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    gaps, end = [], spans[0][1]
+    for a, b in spans[1:]:
+        if a - end >= min_ms * 1e3:
+            gaps.append(((a - end) / 1e3, (end - spans[0][0]) / 1e3))
+        end = max(end, b)
+    gaps.sort(reverse=True)
+    return {"lead_in_ms": spans[0][0] / 1e3,
+            "span_ms": (end - spans[0][0]) / 1e3, "min_ms": min_ms,
+            "count": len(gaps), "sum_ms": sum(g for g, _ in gaps),
+            "longest_ms_at_ms": gaps[:6]}
+
+
+def in_window(events, t0, t1):
+    """The durations (s) of the (end time, duration) events ending in
+    [t0, t1]."""
+    return [d for t, d in events if t0 <= t <= t1]
+
+
+def phase_trainer(bare_fps, bare_step):
+    """The training and evaluation CLIs, the checkpoints and the serving
+    loader, hourglass_1 at full width, B = 32 (see the module's
+    docstring).  ``bare_step()`` runs one bare raw train step."""
+    steps = -(-TRAINER_FRAMES // TRAIN_BATCH)
+    evals = -(-TRAINER_TEST_FRAMES // TRAIN_BATCH)
+    out = {"phase": "trainer", "net": "hourglass_1", "batch": TRAIN_BATCH,
+           "frames": TRAINER_FRAMES, "test_frames": TRAINER_TEST_FRAMES}
+    # the bare step called back to back from Python, as a loop would
+    loop_s = host_ms(lambda: [bare_step() for _ in range(steps)]
+                     + [torch.cuda.synchronize()], 3) / 1e3
+    out["bare_step_loop_fps"] = steps * TRAIN_BATCH / loop_s
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--net", "hourglass_1", "--synthetic", "--data-mode", "raw",
+                "--synthetic-size", str(TRAINER_FRAMES),
+                "--synthetic-test-size", str(TRAINER_TEST_FRAMES),
+                "--batch-size", str(TRAIN_BATCH), "--output-dir", root,
+                "--device", "cuda"]
+        with trainer_marks():
+            reset_counts()
+            t0 = time.perf_counter()
+            tr = train_cli.main(argv + ["--epochs", "2"])
+            torch.cuda.synchronize()
+            out["two_epochs_s"] = time.perf_counter() - t0
+            out["launches"] = counts()
+        # an eval step encodes the target for its loss too
+        check_launches("trainer", out["launches"], {
+            "encode": 2 * (steps + evals), "decode": 2 * (steps + evals),
+            "decode_backward": 2 * steps})
+        ckpt = os.path.join(tr.work_dir, "ckpt")
+        out["checkpoints"] = sorted(os.listdir(ckpt))
+        if out["checkpoints"] != ["1.pth", "2.pth"]:
+            raise AssertionError(f"checkpoints: {out['checkpoints']}")
+
+        with trainer_marks() as marks:
+            reset_counts()
+            tr = train_cli.main(argv + ["--epochs", "3"])
+            torch.cuda.synchronize()
+            resumed = counts()
+        log = open(tr.log_file).read()
+        out["resume"] = {
+            "logged_restore": "restored checkpoint (epoch 2)" in log,
+            "epochs_tested": [e for e, _, _ in marks["tests"]],
+            "launches": resumed}
+        if not out["resume"]["logged_restore"] \
+                or out["resume"]["epochs_tested"] != [3]:
+            raise AssertionError(f"resume: {out['resume']}")
+        check_launches("trainer resume", resumed, {
+            "encode": steps + evals, "decode": steps + evals,
+            "decode_backward": steps})
+        last_mpe = marks["tests"][-1][1]
+
+        mpe = evaluate_cli.main(argv + ["--load-model",
+                                        os.path.join(ckpt, "3.pth")])
+        out["evaluate"] = {"trainer_test_mpe_epoch3": last_mpe,
+                           "evaluate_cli_mpe": mpe,
+                           "abs_err": abs(mpe - last_mpe),
+                           "atol": EVAL_MPE_ATOL}
+        if not abs(mpe - last_mpe) <= EVAL_MPE_ATOL:
+            raise AssertionError(f"evaluate: {out['evaluate']}")
+
+        # the Trainer's eval joints against a Predictor from its
+        # checkpoint, on the Trainer's own crops of the test frames
+        items = [tr.test_data[i] for i in range(TRAIN_BATCH)]
+        raw, p, _ = tr._stage({k: np.stack([it[k] for it in items])
+                               for k in items[0]}, tr.test_data)
+        m = tr._raw_eval_step(raw, p)
+        pred = Predictor.from_checkpoint(tr.cfg, ckpt, device="cuda")
+        got = pred.predict_normalized(m["img"].cpu().numpy())
+        want = m["jt_uvd_pred"].cpu().numpy()
+        out["from_checkpoint_max_abs_err"] = float(np.abs(got - want).max())
+        if not np.array_equal(got, want):
+            raise AssertionError("Predictor.from_checkpoint joints differ "
+                                 "from the Trainer's eval joints")
+
+        # epochs 4-6: 4 renders the new process's frames, 5 is timed, 6
+        # profiled
+        with trainer_marks(profile_epoch=6) as marks:
+            tr = train_cli.main(argv + ["--epochs", "6"])
+        t_train = {e: marks["test_start"][e] - marks["save_end"][e - 1]
+                   for e in (5, 6)}
+        win = (marks["save_end"][4], marks["test_start"][5])
+        waits = in_window(marks["wait"], *win)
+        stages = in_window(marks["stage"], *win)
+        busy = busy_ms(marks["profile"])
+        out["warm_epoch"] = {
+            "train_s": t_train[5],
+            "train_fps": TRAINER_FRAMES / t_train[5],
+            "bare_step_train_fps_b32": bare_fps,
+            "ratio_to_bare_step": TRAINER_FRAMES / t_train[5] / bare_fps,
+            "loop_waits_for_batches_s": sum(waits),
+            "loop_waits_s": waits,
+            "staging_s_per_batch": float(np.mean(stages)) if stages else None,
+            "profiled_epoch_train_s": t_train[6],
+            "profiled_epoch_busy_ms": busy,
+            "idle_share": 1.0 - busy / (t_train[6] * 1e3),
+            "device_gaps": device_gaps(marks["profile"])}
+        out["best_records"] = tr.best_records
+    emit(out)
+    return out["launches"]
+
+
+def rel_to_max(got, want) -> float:
+    """max |got - want| over max |want| (0 where want is all 0)."""
+    scale = float(want.abs().max())
+    return float((got - want).abs().max()) / scale if scale else 0.0
+
+
+def phase_train_resnet(frames, joints, centers):
+    """Raw resnet_18 train steps at B = 32: exact launch counts, one step
+    against the CPU, one with remat against one without, frames/s."""
+    cfg = resnet_config(coord_weight=0.1)
+    model = new_model(cfg, "cuda")
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = make_optimizer(model.parameters(), cfg.optimizer, cfg.lr)
+    train = make_raw_train_step(model, opt, cfg, cfg.paras, cfg.flip)
+    raw, p = raw_inputs(cfg, frames, joints, centers, "cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED)
+    B = len(frames)
+
+    reset_counts()
+    metrics = [train(raw, p, draw_augment_params(gen, B, *cfg.augment_para))
+               for _ in range(RESNET_STEPS)]
+    torch.cuda.synchronize()
+    launches = counts()
+    losses = [float(m["loss"]) for m in metrics]
+    check_launches("train_resnet", launches, {
+        "encode": RESNET_STEPS, "decode": RESNET_STEPS,
+        "decode_backward": RESNET_STEPS})
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite resnet loss: {losses}")
+
+    aug = draw_augment_params(torch.Generator("cuda").manual_seed(SEED + 4),
+                              B, *cfg.augment_para)
+    step_ms = device_ms(train, [(raw, p, aug)], 10)
+
+    # one step from the same weights with and without remat
+    runs = {}
+    for remat in (False, True):
+        m = build_model(cfg.net, cfg.jt_num, cfg.downsample, remat=remat)
+        m.load_state_dict(sd)
+        m.cuda()
+        step = make_raw_train_step(
+            m, make_optimizer(m.parameters(), cfg.optimizer, cfg.lr), cfg,
+            cfg.paras, cfg.flip)
+        loss = float(step(raw, p, aug)["loss"])
+        runs[remat] = (loss, {n: q.grad.detach().clone()
+                              for n, q in m.named_parameters()},
+                       {n: b.detach().clone() for n, b in m.named_buffers()})
+    (l0, g0, b0), (l1, g1, b1) = runs[False], runs[True]
+    grad_err = max(rel_to_max(g1[n], g0[n]) for n in g0)
+    stats_err = max(rel_to_max(b1[n], b0[n]) for n in b0
+                    if "running" in n)
+    counters_equal = all(torch.equal(b0[n], b1[n]) for n in b0
+                         if n.endswith("num_batches_tracked"))
+    stats_bit_equal = sum(torch.equal(b0[n], b1[n]) for n in b0
+                          if "running" in n)
+    emit({"phase": "train_resnet", "net": cfg.net, "batch": B,
+          "steps": RESNET_STEPS, "coord_weight": cfg.coord_weight,
+          "launches": launches, "loss_first": losses[0],
+          "loss_last": losses[-1], "train_step_ms_b32": step_ms,
+          "train_fps_b32": B / step_ms * 1e3,
+          "remat": {"loss": l1, "loss_without": l0,
+                    "grad_max_err_rel_to_max": grad_err,
+                    "running_stats_max_err_rel_to_max": stats_err,
+                    "rtol_of_max": REMAT_RTOL_OF_MAX,
+                    "running_stats_bit_equal": stats_bit_equal,
+                    "running_stats": sum("running" in n for n in b0),
+                    "batch_counters_equal": counters_equal}})
+    if not (grad_err <= REMAT_RTOL_OF_MAX and stats_err <= REMAT_RTOL_OF_MAX
+            and counters_equal):
+        raise AssertionError("the remat step disagrees with the step "
+                             "without it")
+    phase_cross_device(cfg, frames, joints, centers,
+                       phase="train_resnet_cross_device")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -938,7 +1251,8 @@ def main() -> int:
     pred_r, pred_q, crops, resnet_launches = phase_serve_resnet(frames,
                                                                 centers)
     launches.update(resnet_launches)
-    times = phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p)
+    times, bare_fps = phase_time(cfg, pred, frames, centers, bw, flops,
+                                 train, raw, p)
     times.update(phase_time_resnet(pred_r, pred_q, crops, frames, centers,
                                    bw, int8_ops))
     phase_profile("train", train, (raw, p, draw_augment_params(
@@ -947,6 +1261,11 @@ def main() -> int:
     phase_profile("serve_resnet_int8 forward + decode, B = 32",
                   pred_q._infer, (torch.from_numpy(crops).cuda(),),
                   groups=INT8_GROUPS)
+    aug = draw_augment_params(torch.Generator("cuda").manual_seed(SEED + 5),
+                              TRAIN_BATCH, *cfg.augment_para)
+    launches["trainer"] = phase_trainer(bare_fps,
+                                        lambda: train(raw, p, aug))
+    launches["train_resnet"] = phase_train_resnet(frames, joints, centers)
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

@@ -291,3 +291,75 @@ def test_int8_resnet18_request_launches(cuda):
              decode_cuda.LAUNCHES, encode_cuda.LAUNCHES)
     assert [y - x for x, y in zip(before, after)] == [20, 3, 1, 0]
     assert np.isfinite(q8).all() and np.abs(q8 - fp).max() < 0.05
+
+
+@pytest.mark.parametrize("net", ["hourglass_1", "resnet_18"])
+def test_remat_step_on_the_card(cuda, net):
+    """One train step with and without remat from the same weights: the
+    batch counters equal; the running statistics and the gradients
+    within 1e-4 of each tensor's max |value| (some cuDNN kernels sum in
+    another order from one launch to the next; a second BatchNorm update
+    would move a statistic by 90 % of the first).  Conv biases that feed
+    a train-mode BatchNorm have a gradient of 0 in exact arithmetic, so
+    theirs is roundoff and is left out."""
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.training.optim import make_optimizer
+    from awr_tpu_torch.training.steps import make_train_step
+
+    _, img, jt = inputs(cuda, 4, 32, H=64)
+    cfg = (resnet_config if net.startswith("resnet") else hourglass_config)(
+        img_size=64, coord_weight=1.0)
+    sd = torch_default_init_(build_model(net, J),
+                             torch.Generator().manual_seed(0)).state_dict()
+    runs = []
+    for remat in (False, True):
+        model = build_model(net, J, remat=remat)
+        model.load_state_dict(sd)
+        model.to(cuda)
+        make_train_step(model, make_optimizer(model.parameters(), "adam",
+                                              1e-3), cfg)(
+            dict(img=img, jt_uvd=jt))
+        runs.append(({k: p.grad for k, p in model.named_parameters()},
+                     dict(model.named_buffers())))
+    (g0, b0), (g1, b1) = runs
+    roundoff = {f"{n}.bias" for n, m in model.named_modules()
+                if isinstance(m, torch.nn.Conv2d) and m.bias is not None
+                and not n.startswith(("outs_1.", "outs_2.", "final"))}
+
+    def close(got, want):
+        return float((got - want).abs().max()) <= 1e-4 * float(
+            want.abs().max())
+
+    for k in b0:
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(b0[k], b1[k]) and int(b1[k]) == 1, k
+        else:
+            assert close(b1[k], b0[k]), k
+    for k in g0:
+        if k not in roundoff:
+            assert close(g1[k], g0[k]), k
+
+
+def test_trainer_epoch_on_the_card(cuda, tmp_path):
+    """One raw-mode epoch of the Trainer on the card: pinned staging on
+    the steps' stream, one encode, decode and decode backward a train
+    step, one encode and decode an eval step, a checkpoint."""
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.data.synthetic import SyntheticHandDataset
+    from awr_tpu_torch.training.trainer import Trainer
+
+    cfg = hourglass_config(img_size=32, batch_size=4, vis_freq=0,
+                           print_freq=1000, max_epoch=1, coord_weight=0.1)
+    tr = Trainer(cfg, SyntheticHandDataset(8, J, 32, phase="train"),
+                 SyntheticHandDataset(4, J, 32, phase="test", seed=1),
+                 workdir=str(tmp_path), device="cuda")
+    before = (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
+              decode_cuda.BACKWARD_LAUNCHES)
+    tr.train()
+    tr.close()
+    after = (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
+             decode_cuda.BACKWARD_LAUNCHES)
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 2]
+    assert (tmp_path / "ckpt" / "1.pth").exists()
+    assert tr.best_records["epoch"] == 1
+    assert np.isfinite(tr.best_records["MPE"])

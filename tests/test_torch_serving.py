@@ -97,7 +97,8 @@ def test_no_device_without_gpu_raises(monkeypatch):
         Predictor(cfg, build_model(cfg.net, cfg.jt_num))
 
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "awr_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "cv2", "matplotlib",
+             "awr_tpu"}
 
 
 @pytest.mark.parametrize("path", sorted(
