@@ -77,9 +77,11 @@ def main(argv=None):
                  ckpt_max_to_keep=2,
                  step_timeout_s=args.step_timeout or None)
     train = SyntheticHandDataset(args.train_size, cfg.jt_num, 128,
-                                 phase="train", seed=0, layout="grid")
+                                 phase="train", seed=0, layout="grid",
+                                 mode="raw")
     test = SyntheticHandDataset(args.test_size, cfg.jt_num, 128,
-                                phase="test", seed=1, layout="grid")
+                                phase="test", seed=1, layout="grid",
+                                mode="raw")
     tr = Trainer(cfg, train, test, workdir=args.workdir, device=args.device)
 
     t0 = time.time()

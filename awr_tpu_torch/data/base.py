@@ -1,12 +1,12 @@
-"""Shared dataset base: the host batcher and the refined-center lookup
-(the JAX package's ``data/base.py``).
+"""Shared dataset base: the reference item chain, the host batcher and
+the refined-center lookup (the JAX package's ``data/base.py``).
 
-Subclasses provide raw frames plus ``paras/flip/img_size/cube/phase/
-mode`` attributes.  The port serves raw mode only: items are raw frames,
-and crop, augmentation and normalization run on the device
-(``data/device.py``).  The host chain (the reference's cv2 crop ->
-augment|normalize -> label-normalize, nyu_loader.py:38-66) waits for the
-port's host ``CameraCrop``.
+Subclasses provide raw frames plus ``paras/flip/img_size/cube/phase/val/
+aug_para/rng/cropper/mode`` attributes.  In host mode an item goes
+through the reference's crop -> augment|normalize -> label-normalize
+chain here on the host (nyu_loader.py:38-66); in raw mode an item is the
+raw frame, and crop, augmentation and normalization run on the device
+(``data/device.py``).
 """
 
 from __future__ import annotations
@@ -17,18 +17,17 @@ from typing import Optional
 
 import numpy as np
 
-HOST_MODE_UNPORTED = (
-    "host mode (the reference's cv2 crop and augmentation on the host) is "
-    "not ported yet; use mode='raw', which crops and augments on the "
-    "device")
+from awr_tpu_torch.data.transforms import normalize_labels
+from awr_tpu_torch.geometry import transform_uv_np, uvd2xyz_np, xyz2uvd_np
+
+MODES = ("host", "raw")
 
 
 def check_mode(mode: str) -> str:
-    """``mode`` if the port serves it; host mode raises."""
-    if mode == "host":
-        raise NotImplementedError(HOST_MODE_UNPORTED)
-    if mode != "raw":
-        raise ValueError(f"unknown data mode {mode!r}")
+    """``mode`` if it is "host" or "raw"; anything else raises."""
+    if mode not in MODES:
+        raise ValueError(f"unknown data mode {mode!r}; expected one of "
+                         f"{MODES}")
     return mode
 
 
@@ -64,8 +63,48 @@ def _load_centers_or_centroids(root, phase, labels_xyz,
 
 class DepthDataset:
     def process(self, img, jt_xyz, center_xyz, cube):
-        """The reference's host item chain (nyu_loader.py:38-66)."""
-        raise NotImplementedError(HOST_MODE_UNPORTED)
+        """The reference's host item chain (nyu_loader.py:38-66): a dict
+        of the normalized crop ``img`` (S, S), ``jt_xyz`` and ``jt_uvd``
+        (J, 3), and the ``center_xyz``, ``M`` and ``cube`` that undo the
+        normalization, all float32.  Train items that are not ``val``
+        draw one augmentation from ``self.rng``."""
+        c = self.cropper
+        center_uvd = xyz2uvd_np(center_xyz, self.paras, self.flip).astype(
+            np.float64)
+        jt_xyz = jt_xyz - center_xyz
+        img, M = c.crop(img, center_uvd, cube, self.img_size)
+
+        if self.phase == "train" and not self.val:
+            aug_op, trans, scale, rot = c.random_aug(self.rng, *self.aug_para)
+            img, jt_xyz, cube, center_uvd, M = c.augment(
+                img, jt_xyz, center_uvd, cube, M, aug_op, trans, scale, rot)
+            center_xyz = uvd2xyz_np(center_uvd, self.paras, self.flip)
+        else:
+            img = c.normalize(img.max(), img, center_xyz[2], cube[2])
+
+        jt_uvd_px = transform_uv_np(
+            xyz2uvd_np(jt_xyz + center_xyz, self.paras, self.flip), M)
+        jt_xyz_n, jt_uvd_n = normalize_labels(
+            jt_xyz, jt_uvd_px, center_xyz, cube, self.img_size)
+        return dict(
+            img=img.astype(np.float32),
+            jt_xyz=jt_xyz_n,
+            jt_uvd=jt_uvd_n,
+            center_xyz=np.asarray(center_xyz, np.float32),
+            M=np.asarray(M, np.float32),
+            cube=np.asarray(cube, np.float32),
+        )
+
+    def item(self, img, jt_xyz, center_xyz, cube):
+        """One item in the dataset's mode: the host chain's dict, or the
+        raw frame with float32 joints and float64 center and cube (which
+        keep the crop's ``int(x + 0.5)`` truncations, computed on the
+        host, exact)."""
+        if self.mode == "raw":
+            return dict(img=img, jt_xyz=np.asarray(jt_xyz, np.float32),
+                        center_xyz=np.asarray(center_xyz, np.float64),
+                        cube=np.asarray(cube, np.float64))
+        return self.process(img, jt_xyz, center_xyz, cube)
 
     def batches(self, batch_size: int, shuffle: bool = False,
                 drop_last: bool = False,

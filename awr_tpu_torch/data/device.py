@@ -8,14 +8,17 @@ the scalar crop parameters are computed on the host, in float64
 (:func:`awr_tpu_torch.data.transforms.crop_params_np`).
 
 Semantics:
-- NEAREST resize uses cv2 index semantics ``src = min(floor(dst*scale), n-1)``;
+- NEAREST resize uses OpenCV's index, ``src = min(floor(dst * (1 /
+  (dst_n / n))), n - 1)`` in double, so the crop is the host crop's bit
+  for bit (the JAX package's device crop takes the float32 quotient,
+  which differs for a few crop sizes; ROADMAP queue 3);
 - the z-threshold maps nonzero depth below zstart to zstart and above
   zend to 0 (loader.py:202-205);
 - normalize maps {exact 0, exact crop max} to background
   ``center_z + cube_z/2`` then clips to the cube (loader.py:88-101).
 
-Every step is float32 in the same order of operations as the JAX
-package's spelling, so the crops are bit-identical to it.
+Every other step is float32 in the same order of operations as the JAX
+package's spelling.
 
 Train-time augmentation (choose one of {trans, scale, rot, none},
 loader.py:53-86) is a batch of inverse-affine bilinear gathers.  As in
@@ -56,15 +59,21 @@ def _crop_gather(imgs, p, dsize: int):
     jj = torch.arange(dsize, dtype=torch.int32, device=dev).view(1, 1, dsize)
     in_paste = (ii >= ty) & (ii < ty + sh) & (jj >= tx) & (jj < tx + sw)
 
-    crop_w = (ue - us).float()
-    crop_h = (ve - vs).float()
+    # OpenCV's nearest index, in double as it computes it: floor(x * (1 /
+    # (sw / w))).  The float32 quotient x * w / sw is exact where x * w
+    # is a multiple of sw, and OpenCV's product can fall just under it
+    # (w = 186, sw = 128, x = 64: 93 against 92.99999999999999)
+    crop_w = (ue - us).double()
+    crop_h = (ve - vs).double()
     cu = torch.minimum(
-        torch.floor((jj - tx).float() * crop_w
-                    / torch.clamp(sw, min=1).float()).to(torch.int32),
+        torch.floor((jj - tx).double()
+                    * (1.0 / (torch.clamp(sw, min=1).double() / crop_w))
+                    ).to(torch.int32),
         ue - us - 1)
     cv = torch.minimum(
-        torch.floor((ii - ty).float() * crop_h
-                    / torch.clamp(sh, min=1).float()).to(torch.int32),
+        torch.floor((ii - ty).double()
+                    * (1.0 / (torch.clamp(sh, min=1).double() / crop_h))
+                    ).to(torch.int32),
         ve - vs - 1)
     su = us + cu
     sv = vs + cv

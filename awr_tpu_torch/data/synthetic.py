@@ -10,6 +10,7 @@ import numpy as np
 
 from awr_tpu_torch.config import DATASET_FLIP, NYU_PARAS
 from awr_tpu_torch.data.base import DepthDataset, check_mode
+from awr_tpu_torch.data.transforms import CameraCrop
 
 NYU_FLIP = DATASET_FLIP["nyu"]
 
@@ -69,13 +70,14 @@ def synthetic_frames(n: int, jt_num: int = 14, seed: int = 0,
 
 
 class SyntheticHandDataset(DepthDataset):
-    """The JAX package's ``SyntheticHandDataset`` in raw mode: the same
-    numpy draws in the same order, so the same items bit for bit.  The
-    host-mode knobs (``aug_para``, ``val``) wait for host mode."""
+    """The JAX package's ``SyntheticHandDataset``: the same numpy draws in
+    the same order, so the same items, raw and host, as the NYU loader's
+    item contract."""
 
     def __init__(self, num_samples: int = 64, jt_num: int = 14,
                  img_size: int = 128, cube=(300.0, 300.0, 300.0),
-                 phase: str = "test", seed: int = 0, mode: str = "raw",
+                 phase: str = "test", aug_para=(10.0, 0.1, 180.0),
+                 seed: int = 0, mode: str = "host",
                  shape=(480, 640), layout: str = "random"):
         self.mode = check_mode(mode)
         self.n = num_samples
@@ -83,9 +85,12 @@ class SyntheticHandDataset(DepthDataset):
         self.img_size = img_size
         self.cube = np.asarray(cube, np.float64)
         self.phase = phase
+        self.val = False
+        self.aug_para = tuple(aug_para)
         self.shape = shape
         self.paras = NYU_PARAS
         self.flip = NYU_FLIP
+        self.cropper = CameraCrop(self.paras, self.flip, img_size)
         self.rng = np.random.RandomState(23455)
 
         g = np.random.RandomState(seed)
@@ -156,8 +161,4 @@ class SyntheticHandDataset(DepthDataset):
 
     def __getitem__(self, index: int):
         img, jt_xyz, center_xyz = self.raw_item(index)
-        # float64 center and cube keep the crop's int(x + 0.5)
-        # truncations, computed on the host, exact
-        return dict(img=img, jt_xyz=jt_xyz.astype(np.float32),
-                    center_xyz=np.asarray(center_xyz, np.float64),
-                    cube=self.cube_for(index))
+        return self.item(img, jt_xyz, center_xyz, self.cube_for(index))

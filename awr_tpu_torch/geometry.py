@@ -34,6 +34,31 @@ def uvd2xyz_np(pts, paras, flip=1):
     return out
 
 
+def transform_uv_np(jt_uvd, M):
+    """Apply a 3x3 homogeneous affine M to the uv part of (..., J, 3)
+    points in the points' dtype; depth untouched (reference
+    loader.py:254-260).  The numpy branch of the JAX package's
+    ``transform_uv``, operation for operation."""
+    uv1 = np.concatenate(
+        [jt_uvd[..., :2], np.ones_like(jt_uvd[..., :1])], axis=-1)
+    uv1 = np.einsum("ij,...kj->...ki", np.asarray(M, dtype=uv1.dtype), uv1)
+    uv = uv1[..., :2] / uv1[..., 2:]
+    return np.concatenate([uv, jt_uvd[..., 2:]], axis=-1)
+
+
+def rotate_pts_uv_np(pts, center, angle_deg):
+    """Rotate (J, 3) uv points clockwise by ``angle_deg`` about
+    ``center``; depth untouched (reference loader.py:242-252).  The numpy
+    branch of the JAX package's ``rotate_pts_uv``."""
+    a = angle_deg * np.pi / 180.0
+    ca, sa = np.cos(a), np.sin(a)
+    du = pts[..., 0] - center[0]
+    dv = pts[..., 1] - center[1]
+    u = du * ca - dv * sa + center[0]
+    v = du * sa + dv * ca + center[1]
+    return np.stack([u, v, pts[..., 2]], axis=-1)
+
+
 # Batched torch twins of the above for the device train path.  Each casts
 # the points to float32 and takes ``paras`` as (fx, fy, u0, v0) floats or
 # a float32 tensor, as the JAX package's device path does, so the two

@@ -1,11 +1,14 @@
-"""Build and load the port's hand-written CUDA kernels.
+"""Build and load the port's hand-written CUDA kernels and its host C++.
 
 Each ``awr_tpu_torch/csrc/<name>.cu`` exposes a plain ``extern "C"``
 launcher.  It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/awr_tpu_torch/lib<name>-<hash>.so`` at first use and bound with
-``ctypes``.  The hash covers the source, every header under ``csrc/``
-(``*.cuh``) and the flags, so an edited source or header is rebuilt.
-Nothing here runs when the module is imported.
+``ctypes``.  A ``csrc/<name>.cpp`` is host code (the PNG unfilter): the
+host C++ compiler (``c++`` or ``g++`` on PATH) builds it the same way.
+The hash covers the source, for a ``.cu`` every header under ``csrc/``
+(``*.cuh``), and the flags, so an edited source or header is rebuilt.
+A missing compiler or a failed build raises.  Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "awr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -35,18 +39,45 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _cxx() -> str:
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
+                           "PNG unfilter is built with one")
+    return cxx
+
+
+def _source(name: str) -> Path:
+    for suffix in (".cu", ".cpp"):
+        if (CSRC / f"{name}{suffix}").exists():
+            return CSRC / f"{name}{suffix}"
+    raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    src = _source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    if src.suffix == ".cu":
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.name.encode() + header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+    else:
+        digest.update(" ".join(HOST_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def _command(name: str, out: Path) -> list:
+    src = _source(name)
+    if src.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [_cxx(), *HOST_FLAGS, "-o", str(out), str(src)]
 
 
 def build(names) -> dict:
     """Compile the named sources that are not built yet, all at once (one
-    ``nvcc`` process each).  Returns ``{name: {"seconds", "ptxas"}}``
-    for what was compiled; raises if any compile fails."""
+    compiler process each).  Returns ``{name: {"seconds", "ptxas"}}``
+    for what was compiled (``ptxas``: the compiler's output); raises if
+    any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
@@ -54,8 +85,8 @@ def build(names) -> dict:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+        jobs[name] = (subprocess.Popen(_command(name, tmp),
+                                       stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, out, time.perf_counter())
     report, failed = {}, []
@@ -67,12 +98,13 @@ def build(names) -> dict:
         os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
         report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        raise RuntimeError("build failed for " + "\n".join(failed))
     return report
 
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The built library of ``csrc/<name>.cu``, built first if needed."""
+    """The built library of ``csrc/<name>.cu`` or ``.cpp``, built first
+    if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))

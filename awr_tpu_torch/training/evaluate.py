@@ -3,14 +3,16 @@
 
 Usage (on the GPU; add ``--device cpu`` on the CPU):
   python -m awr_tpu_torch.training.evaluate --synthetic
-  python -m awr_tpu_torch.training.evaluate --synthetic \
+  python -m awr_tpu_torch.training.evaluate --data-dir ./data/nyu \
       --load-model output/nyu/checkpoint_nyu_resnet18/ckpt/2.pth
+  python -m awr_tpu_torch.training.evaluate --dataset msra \
+      --data-dir ./data/msra --allow-centroid-centers
 
-The JAX package's flags and defaults, except: no ``--pallas``/
-``--no-pallas`` (a CUDA tensor always takes the hand-written kernels);
-``--data-mode`` defaults to ``raw`` (host mode is not ported yet); only
-the synthetic dataset until the real loaders are ported; ``--device``
-(default ``cuda``).
+The JAX package's flags and defaults (``--dataset {nyu,icvl,msra,
+hands17}``, ``--data-dir``, ``--data-mode host`` by default: the
+reference's host chain), except: no ``--pallas``/``--no-pallas`` (a CUDA
+tensor always takes the hand-written kernels), and ``--device`` (default
+``cuda``).
 """
 
 from __future__ import annotations
@@ -70,11 +72,10 @@ def add_common_args(ap: argparse.ArgumentParser):
                     help="overlay PNG every N batches (0=off)")
     ap.add_argument("--compute-dtype", default="float32",
                     choices=["float32", "bfloat16"])
-    ap.add_argument("--data-mode", default="raw",
+    ap.add_argument("--data-mode", default="host",
                     choices=["host", "raw"],
-                    help="'raw': crop and augmentation on the device; "
-                         "'host' (the reference's cv2 chain) is not "
-                         "ported yet")
+                    help="'host': the reference's crop and augmentation "
+                         "on the host; 'raw': both on the device")
     ap.add_argument("--profile-dir", default="",
                     help="write a torch.profiler Chrome trace here")
     ap.add_argument("--allow-centroid-centers", action="store_true",
@@ -86,20 +87,31 @@ def add_common_args(ap: argparse.ArgumentParser):
 
 
 def make_datasets(args, cfg: Config, train: bool = False):
-    if not args.synthetic:
-        raise NotImplementedError(
-            f"the {getattr(args, 'dataset', 'nyu')} loader is not ported "
-            "yet; pass --synthetic")
-    from awr_tpu_torch.data.synthetic import SyntheticHandDataset
+    mode = getattr(args, "data_mode", "host")
+    if args.synthetic:
+        from awr_tpu_torch.data.synthetic import SyntheticHandDataset
 
-    mode = getattr(args, "data_mode", "raw")
-    test_size = (getattr(args, "synthetic_test_size", 0)
-                 or args.synthetic_size)
-    test = SyntheticHandDataset(test_size, cfg.jt_num, cfg.img_size,
-                                phase="test", seed=1, mode=mode)
-    tr = (SyntheticHandDataset(args.synthetic_size, cfg.jt_num,
-                               cfg.img_size, phase="train", seed=0,
-                               mode=mode)
+        test_size = (getattr(args, "synthetic_test_size", 0)
+                     or args.synthetic_size)
+        test = SyntheticHandDataset(test_size, cfg.jt_num, cfg.img_size,
+                                    phase="test", seed=1, mode=mode)
+        tr = (SyntheticHandDataset(args.synthetic_size, cfg.jt_num,
+                                   cfg.img_size, phase="train", seed=0,
+                                   mode=mode)
+              if train else None)
+        return tr, test
+
+    from awr_tpu_torch.data import (Hands17Dataset, ICVLDataset,
+                                    MSRADataset, NYUDataset)
+
+    cls = {"nyu": NYUDataset, "icvl": ICVLDataset, "msra": MSRADataset,
+           "hands17": Hands17Dataset}[getattr(args, "dataset", "nyu")]
+    kw = dict(img_size=cfg.img_size, cube=cfg.cube, mode=mode)
+    if cls in (MSRADataset, Hands17Dataset):
+        kw["allow_centroid_centers"] = getattr(
+            args, "allow_centroid_centers", False)
+    test = cls(args.data_dir, "test", **kw)
+    tr = (cls(args.data_dir, "train", aug_para=cfg.augment_para, **kw)
           if train else None)
     return tr, test
 

@@ -3,6 +3,9 @@
 
 Usage (on the GPU; add ``--device cpu`` on the CPU):
   python -m awr_tpu_torch.training.train --synthetic --epochs 2
+  python -m awr_tpu_torch.training.train --data-dir ./data/nyu
+  python -m awr_tpu_torch.training.train --data-dir ./data/nyu \
+      --data-mode raw     # crop and augment on the device
 
 Trains, tests and checkpoints every epoch under
 ``<output-dir>/<dataset>/checkpoint_<exp_id>/``; rerun with more

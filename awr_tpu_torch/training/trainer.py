@@ -1,5 +1,5 @@
-"""Train/eval driver: a host loop around the raw-mode train and eval
-steps (the JAX package's ``training/trainer.py``).
+"""The Trainer: a host loop around the train and eval steps (the
+JAX package's ``training/trainer.py``).
 
 Reference parity: the Trainer semantics of train.py (epoch loop,
 per-batch encode/forward/decode/loss/step, per-epoch train-MPE + test +
@@ -12,10 +12,17 @@ package's too:
 - ``best_records`` is updated on improvement (the reference initializes
   it at train.py:75-77 but never writes it); ``best_records["epoch"]`` is
   the resume cursor, ``best_records["best_epoch"]`` the best epoch.
-- The crop, the augmentation and the normalization run on the device
-  inside the steps (raw mode, the only mode ported so far); the
-  augmentation is drawn from a device generator seeded by ``(seed,
-  epoch, step)``, so a resumed run draws what a straight run draws.
+- Two data modes, as in the JAX package.  Host mode: the dataset's items
+  are the reference's host chain (crop, augmentation, normalization on
+  the host, ``data/base.py``); the Trainer uploads the normalized crops
+  and runs the plain train and eval steps, and the evaluator's feedback
+  (``jt_xyz``, ``center_xyz``, ``M``, ``cube``) comes from the host
+  batch.  Host-mode training loads with one worker, so the dataset's one
+  ``RandomState`` is drawn in the reference's order.  Raw mode: the crop,
+  the augmentation and the normalization run on the device inside the
+  steps; the augmentation is drawn from a device generator seeded by
+  ``(seed, epoch, step)``, so a resumed run draws what a straight run
+  draws.
 - float32 without TF32 (the JAX package's ``matmul_precision`` default,
   "highest").
 
@@ -36,7 +43,6 @@ import torch
 
 from awr_tpu_torch.config import Config, resolve_device
 from awr_tpu_torch.data import device as data_device
-from awr_tpu_torch.data.base import HOST_MODE_UNPORTED
 from awr_tpu_torch.data.pipeline import PrefetchLoader, prefetch_to_device
 from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.evaluation import Evaluator
@@ -47,8 +53,9 @@ from awr_tpu_torch.training.checkpoints import CheckpointManager
 from awr_tpu_torch.training.optim import (PlateauScheduler,
                                           get_learning_rate, make_optimizer,
                                           set_learning_rate, step_lr)
-from awr_tpu_torch.training.steps import (make_raw_eval_step,
-                                          make_raw_train_step)
+from awr_tpu_torch.training.steps import (make_eval_step, make_raw_eval_step,
+                                          make_raw_train_step,
+                                          make_train_step)
 from awr_tpu_torch.training.watchdog import Watchdog
 from awr_tpu_torch.vis import plot_pose
 
@@ -67,9 +74,6 @@ class Trainer:
         self.device = resolve_device(device)
         self.train_data = train_data
         self.test_data = test_data
-        for ds in (train_data, test_data):
-            if ds is not None and getattr(ds, "mode", "host") != "raw":
-                raise NotImplementedError(HOST_MODE_UNPORTED)
 
         self.work_dir = workdir or os.path.join(
             config.output_dir, config.dataset,
@@ -100,8 +104,11 @@ class Trainer:
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self._gen = torch.Generator(self.device)
+        self._train_step = make_train_step(self.model, self.optimizer,
+                                           config)
+        self._eval_step = make_eval_step(self.model, config)
         ds = train_data if train_data is not None else test_data
-        if ds is not None:
+        if ds is not None and self._raw(ds):
             self._raw_train_step = make_raw_train_step(
                 self.model, self.optimizer, config, ds.paras, ds.flip)
             self._raw_eval_step = make_raw_eval_step(
@@ -151,10 +158,20 @@ class Trainer:
         with torch.cuda.stream(self._stream):
             return t.pin_memory().to(self.device, non_blocking=True)
 
+    @staticmethod
+    def _raw(ds) -> bool:
+        return getattr(ds, "mode", "host") == "raw"
+
     def _stage(self, raw, ds):
-        """Raw batch of dataset ``ds`` -> (device inputs, crop params,
-        valid count) for the raw steps; runs on the staging thread."""
+        """A batch of dataset ``ds`` -> (device inputs, X, valid count);
+        runs on the staging thread.  Host mode: the normalized ``img``,
+        ``jt_uvd`` and ``w`` on the device, X the padded host batch.  Raw
+        mode: the raw steps' inputs, X the crop parameters."""
         batch, n = self._pad(raw)
+        if not self._raw(ds):
+            dev = {k: self._upload(np.asarray(batch[k], np.float32))
+                   for k in ("img", "jt_uvd", "w")}
+            return dev, batch, n
         centers_uvd = xyz2uvd_np(batch["center_xyz"], ds.paras,
                                  ds.flip).astype(np.float64)
         p = crop_params_np(centers_uvd, batch["cube"], np.asarray(ds.paras),
@@ -167,7 +184,10 @@ class Trainer:
 
     @staticmethod
     def _host(t) -> np.ndarray:
-        return t.detach().cpu().numpy()
+        """A device tensor (raw mode) or host array (host mode) as numpy."""
+        if isinstance(t, torch.Tensor):
+            return t.detach().cpu().numpy()
+        return np.asarray(t)
 
     # ------------------------------------------------------------ train
     def _beat(self):
@@ -216,9 +236,13 @@ class Trainer:
             losses, l_off, l_crd = [], 0.0, 0.0
             epoch_losses = []
             t0 = time.time()
+            raw_mode = self._raw(self.train_data)
+            # host-mode items draw their augmentation from the dataset's
+            # one RandomState, so they load on one worker, in the
+            # reference's order
             loader = PrefetchLoader(
                 self.train_data, cfg.batch_size, shuffle=True,
-                num_workers=cfg.num_workers,
+                num_workers=cfg.num_workers if raw_mode else 1,
                 rng=np.random.RandomState(cfg.seed + epoch))
             # stage (pad + H2D copy) device_prefetch batches ahead on a
             # background thread, overlapping the loading of batch i+1
@@ -226,13 +250,18 @@ class Trainer:
                 iter(loader), lambda raw: self._stage(raw, self.train_data),
                 cfg.device_prefetch)
             pending = []  # defer device->host syncs to print/epoch time
-            for ii, (raw, p, n) in enumerate(staged_iter):
-                self._gen.manual_seed(augment_seed(cfg.seed, epoch, ii))
-                aug = data_device.draw_augment_params(
-                    self._gen, raw["img"].shape[0], *cfg.augment_para)
-                metrics = self._raw_train_step(raw, p, aug)
-                fb = {k: metrics[k] for k in ("jt_xyz", "center_xyz", "M",
-                                              "cube")}
+            for ii, (dev, x, n) in enumerate(staged_iter):
+                if raw_mode:
+                    self._gen.manual_seed(augment_seed(cfg.seed, epoch, ii))
+                    aug = data_device.draw_augment_params(
+                        self._gen, dev["img"].shape[0], *cfg.augment_para)
+                    metrics = self._raw_train_step(dev, x, aug)
+                    src = metrics
+                else:
+                    metrics = self._train_step(dev)
+                    src = x
+                fb = {k: src[k] for k in ("jt_xyz", "center_xyz", "M",
+                                          "cube")}
                 # keep everything on the device; the stream never stalls
                 losses.append(metrics["loss"])
                 epoch_losses.append(metrics["loss"])
@@ -292,14 +321,20 @@ class Trainer:
             cfg.device_prefetch)
         # dispatch every eval step without a host sync; materialize the
         # losses and joints afterwards
+        raw_mode = self._raw(self.test_data)
         pending = []
-        for ii, (raw, p, n) in enumerate(staged_iter):
-            metrics = self._raw_eval_step(raw, p)
+        for ii, (dev, x, n) in enumerate(staged_iter):
+            if raw_mode:
+                metrics = self._raw_eval_step(dev, x)
+                src = metrics
+            else:
+                metrics = self._eval_step(dev)
+                src = x
             vis = bool(cfg.vis_freq) and (ii + 1) % cfg.vis_freq == 0
             keep = ("jt_xyz", "center_xyz", "M", "cube") + (
                 ("img", "jt_uvd") if vis else ())
             pending.append((metrics["loss"], metrics["jt_uvd_pred"], n,
-                            {k: metrics[k] for k in keep}, ii, vis))
+                            {k: src[k] for k in keep}, ii, vis))
             self._beat()
         for loss, jt_dev, n, fb, ii, vis in pending:
             self._beat()

@@ -40,7 +40,19 @@ float32, TF32 off:
   card's idle share over epoch 6 (``torch.profiler``);
 - train_resnet: raw resnet_18 train steps at B = 32 with exact launch
   counts, one step on the card against the CPU, the same step with
-  ``remat`` against it without, and train frames/s.
+  ``remat`` against it without, and train frames/s;
+- datasets: an NYU-layout directory written here (320 train and 64 test
+  640x480 frames rendered from 36-joint labels, 8-bit RGB PNGs whose
+  rows cycle through the five filter types, ``joint_data.mat``, refined
+  centers) and 16-frame ICVL, MSRA and HANDS17 directories; every NYU
+  frame decoded by the C++ unfilter and by the plain one, bit-equal to
+  each other and to the depth that was encoded; the host item's time;
+  the training CLI on the NYU directory (hourglass_1, B = 32, 3 epochs)
+  in host mode and in raw mode with exact launch counts, a warm epoch's
+  train frames/s and the next epoch's idle share; the evaluation CLI on
+  each run's last checkpoint in both modes (host and raw test MPE within
+  HOST_RAW_MPE_ATOL); and one evaluation-CLI call on each of the ICVL
+  (J = 16), MSRA and HANDS17 (J = 21) directories.
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -65,11 +77,16 @@ import torch
 import torch.nn.functional as F
 
 from awr_tpu_torch import kernels
-from awr_tpu_torch.config import hourglass_config, resnet_config
+from awr_tpu_torch.config import (DATASET_PARAS, hourglass_config,
+                                  resnet_config)
+from awr_tpu_torch.data import native_decode
 from awr_tpu_torch.data.device import (crop_normalize_batch,
                                        crop_param_tensors,
                                        draw_augment_params)
-from awr_tpu_torch.data.synthetic import synthetic_frames
+from awr_tpu_torch.data.hands17 import HANDS17_PARAS
+from awr_tpu_torch.data.nyu import (EVAL_SELECT, JOINT_SELECT, NYU_FLIP,
+                                    NYU_PARAS, NYUDataset)
+from awr_tpu_torch.data.synthetic import render_hand_depth, synthetic_frames
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
@@ -85,6 +102,7 @@ from awr_tpu_torch.training.optim import make_optimizer
 from awr_tpu_torch.training.steps import (make_raw_eval_step,
                                           make_raw_train_step)
 from awr_tpu_torch.training.trainer import Trainer
+from awr_tpu_torch.utils import png
 
 SEED = 0
 KERNEL_SIZE = 0.4
@@ -110,6 +128,8 @@ KERNELS = [
          replaces="awr_tpu/ops/pallas_int8.py:89", path="serve_resnet_int8"),
 ]
 SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
+# host C++ built beside the kernels: the PNG unfilter of the datasets
+HOST_SOURCES = ["png_unfilter"]
 # float32 sums over F*F = 4096 pixels taken in another order than the
 # plain version's
 DECODE_ATOL = 2e-5
@@ -149,6 +169,17 @@ TRAINER_TEST_FRAMES = 64
 # the Trainer's eval MPE of a checkpoint against the evaluation CLI's on
 # it: the same frames through the same model in one process
 EVAL_MPE_ATOL = 1e-4
+# the datasets phase's NYU-layout directory (10 and 2 steps an epoch at
+# B = 32) and its ICVL, MSRA and HANDS17 directories
+NYU_TRAIN_FRAMES = 320
+NYU_TEST_FRAMES = 64
+SMALL_FRAMES = 16
+DATASET_EPOCHS = 3
+# one checkpoint's test MPE read in host mode and in raw mode: the host
+# chain against the device crop, which the JAX package holds to its host
+# crop at 1e-6 in normalized units (tests/test_data.py:166,197)
+HOST_RAW_MPE_ATOL = 0.01
+ITEM_TIMING_FRAMES = 64
 RESNET_STEPS = 10
 # the remat step's gradients and running statistics against the step
 # without it, relative to each tensor's max |value|: the same kernels on
@@ -263,7 +294,7 @@ def check_launches(path: str, got: dict, want: dict) -> None:
 
 def phase_build():
     t0 = time.perf_counter()
-    report = kernels.build(SOURCES)
+    report = kernels.build(SOURCES + HOST_SOURCES)
     # the int8 tensor-core kernels' dynamic shared memory, from the
     # library (the GEMM's by tile width; 0: the deconv's)
     smem = {bn: int8_cuda.library_smem(bn) for bn in (0, 64, 128)}
@@ -1229,6 +1260,305 @@ def phase_train_resnet(frames, joints, centers):
     return launches
 
 
+def render_flip1(center, jt, paras, shape):
+    """A depth frame of a camera without NYU's y flip: the renderer
+    projects with NYU's, so it gets y mirrored."""
+    m = np.array([1.0, -1.0, 1.0])
+    return render_hand_depth(center * m, jt * m, paras, shape)
+
+
+def random_hand(g, n_joints, depth, spread, z_spread):
+    center = np.array([g.uniform(-40, 40), g.uniform(-30, 30),
+                       g.uniform(*depth)])
+    jt = center[None] + g.uniform(-spread, spread, (n_joints, 3))
+    jt[:, 2] = center[2] + g.uniform(-z_spread, z_spread, n_joints)
+    return center, jt
+
+
+def write_pngs(jobs):
+    """Render and write ``(path, render, as_rgb)`` jobs on 8 threads (the
+    compressor drops the GIL); returns {path: uint16 depth}.  Each PNG's
+    rows cycle through the five filter types."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def write(job):
+        path, render, as_rgb = job
+        depth = render().astype(np.uint16)
+        if as_rgb:  # NYU: blue = depth % 256, green = depth // 256
+            img = np.zeros((*depth.shape, 3), np.uint8)
+            img[..., 1] = depth // 256
+            img[..., 2] = depth % 256
+        else:
+            img = depth
+        png.write_png(path, img, filters=png.FILTERS)
+        return path, depth
+
+    with ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(write, jobs))
+
+
+def write_nyu_fixture(root, n_train, n_test, seed=SEED):
+    """NYU's layout (reference nyu_loader.py:71-90; the recipe of
+    tests/test_nyu_files.py): <root>/{train,test}/depth_1_*.png rendered
+    from the 14 joints that the 36-joint labels select,
+    ``joint_data.mat`` (scipy), ``center_{train,test}_refined.txt``.
+    Returns {path: uint16 depth}."""
+    import scipy.io as sio
+
+    g = np.random.RandomState(seed)
+    jobs = []
+    for phase, n in (("train", n_train), ("test", n_test)):
+        d = os.path.join(root, phase)
+        os.makedirs(d)
+        xyz36, centers = np.zeros((n, 36, 3)), np.zeros((n, 3))
+        for i in range(n):
+            center, jt = random_hand(g, 36, (700, 900), 60, 40)
+            xyz36[i], centers[i] = jt, center
+            jobs.append((os.path.join(d, f"depth_1_{i:07d}.png"),
+                         lambda c=center, j=jt: render_hand_depth(
+                             c, j[JOINT_SELECT][EVAL_SELECT], NYU_PARAS),
+                         True))
+        sio.savemat(os.path.join(d, "joint_data.mat"), {
+            "joint_uvd": xyz2uvd_np(xyz36, NYU_PARAS, NYU_FLIP)[None],
+            "joint_xyz": xyz36[None]})
+        np.savetxt(os.path.join(root, f"center_{phase}_refined.txt"),
+                   centers)
+    return write_pngs(jobs)
+
+
+def write_small_fixtures(root, n, seed=SEED):
+    """ICVL (16-bit PNGs, uvd labels, refined centers), MSRA (bbox-packed
+    .bin frames, test subject P0) and HANDS17 (16-bit PNGs, xyz
+    annotation) layouts of ``n`` test frames each, as the loaders'
+    docstrings give them; MSRA and HANDS17 without refined centers.
+    Returns {dataset: directory}."""
+    import struct
+
+    g = np.random.RandomState(seed + 1)
+    dirs = {k: os.path.join(root, k) for k in ("icvl", "msra", "hands17")}
+    icvl = DATASET_PARAS["icvl"]
+    os.makedirs(os.path.join(dirs["icvl"], "Depth", "seq"))
+    jobs, lines, centers = [], [], []
+    for i in range(n):
+        center, jt = random_hand(g, 16, (350, 450), 40, 25)
+        rel = f"seq/test_{i}.png"
+        jobs.append((os.path.join(dirs["icvl"], "Depth", rel),
+                     lambda c=center, j=jt: render_flip1(c, j, icvl,
+                                                         (240, 320)),
+                     False))
+        lines.append(rel + " " + " ".join(
+            f"{v:.3f}" for v in xyz2uvd_np(jt, icvl, 1).reshape(-1)))
+        centers.append(center)
+    with open(os.path.join(dirs["icvl"], "labels_test.txt"), "w") as fh:
+        fh.write("\n".join(lines))
+    np.savetxt(os.path.join(dirs["icvl"], "center_test_refined.txt"),
+               np.asarray(centers))
+
+    msra = DATASET_PARAS["msra"]
+    for subject, count in (("P0", n), ("P1", 2)):
+        gdir = os.path.join(dirs["msra"], subject, "1")
+        os.makedirs(gdir)
+        joints = []
+        for i in range(count):
+            center, jt = random_hand(g, 21, (350, 450), 35, 25)
+            depth = render_flip1(center, jt, msra, (240, 320))
+            ys, xs = np.nonzero(depth > 0)
+            top, bottom, left, right = (ys.min(), ys.max() + 1, xs.min(),
+                                        xs.max() + 1)
+            with open(os.path.join(gdir, f"{i:06d}_depth.bin"), "wb") as fh:
+                fh.write(struct.pack("<6i", 320, 240, left, top, right,
+                                     bottom))
+                fh.write(depth[top:bottom, left:right].astype(
+                    np.float32).tobytes())
+            raw = jt.copy()
+            raw[:, 2] *= -1  # the raw files store negative z
+            joints.append(raw.reshape(-1))
+        with open(os.path.join(gdir, "joint.txt"), "w") as fh:
+            fh.write(f"{count}\n")
+            np.savetxt(fh, np.asarray(joints))
+
+    os.makedirs(os.path.join(dirs["hands17"], "images"))
+    lines = []
+    for i in range(n):
+        center, jt = random_hand(g, 21, (450, 600), 45, 30)
+        name = f"image_D{i:08d}.png"
+        jobs.append((os.path.join(dirs["hands17"], "images", name),
+                     lambda c=center, j=jt: render_flip1(
+                         c, j, HANDS17_PARAS, (480, 640)), False))
+        lines.append(name + "\t" + "\t".join(f"{v:.6f}"
+                                              for v in jt.reshape(-1)))
+    with open(os.path.join(dirs["hands17"], "Training_Annotation.txt"),
+              "w") as fh:
+        fh.write("\n".join(lines))
+    write_pngs(jobs)
+    return dirs
+
+
+def check_decoder(depths):
+    """Every frame decoded by the C++ unfilter and by the plain one
+    (stacked): bit-equal to each other and to the encoded depth; ms a
+    frame of the file read + inflate, the C++ unfilter and fold, and the
+    plain unfilter and fold."""
+    paths = sorted(depths)
+    n = len(paths)
+    t0 = time.perf_counter()
+    cpp = [native_decode.decode_depth_png(p, "nyu") for p in paths]
+    decode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inflated = [png.inflate_depth_png(p, "nyu") for p in paths]
+    inflate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for rows, width, bpp in inflated:
+        native_decode.unfilter_depth(rows, width, bpp)
+    unfilter_s = time.perf_counter() - t0
+    rows = np.stack([r for r, _, _ in inflated])
+    bpp = inflated[0][2]
+    del inflated
+    t0 = time.perf_counter()
+    plain = png.fold_depth(png.unfilter_plain(rows, bpp), bpp)
+    plain_s = time.perf_counter() - t0
+    out = {"frames": n, "bytes_per_pixel": bpp,
+           "filters": sorted(np.unique(rows[:, :, 0]).tolist()),
+           "cpp_decode_ms_per_frame": decode_s / n * 1e3,
+           "read_inflate_ms_per_frame": inflate_s / n * 1e3,
+           "cpp_unfilter_fold_ms_per_frame": unfilter_s / n * 1e3,
+           "plain_unfilter_fold_ms_per_frame_stacked": plain_s / n * 1e3,
+           "cpp_equals_plain": all(np.array_equal(c, q)
+                                   for c, q in zip(cpp, plain)),
+           "cpp_equals_encoded": all(
+               np.array_equal(c, depths[p].astype(np.float32))
+               for c, p in zip(cpp, paths))}
+    if not (out["cpp_equals_plain"] and out["cpp_equals_encoded"]
+            and out["filters"] == list(png.FILTERS)):
+        raise AssertionError(f"decoder: {out}")
+    return out
+
+
+def item_times(nyu):
+    """ms a ``NYUDataset`` item on one thread: train (host, augmented),
+    test (host), and a raw item (the decode alone)."""
+    out = {}
+    for name, ds in (("train_host", NYUDataset(nyu, "train")),
+                     ("test_host", NYUDataset(nyu, "test")),
+                     ("train_raw", NYUDataset(nyu, "train", mode="raw"))):
+        ds[0]
+        t0 = time.perf_counter()
+        for i in range(ITEM_TIMING_FRAMES):
+            ds[i % len(ds)]
+        out[f"{name}_ms"] = ((time.perf_counter() - t0)
+                             / ITEM_TIMING_FRAMES * 1e3)
+    return out
+
+
+def train_on_fixture(nyu, root, mode):
+    """The training CLI on the NYU directory in ``mode``: exact launch
+    counts, epoch 2's train frames/s, epoch 3's idle share."""
+    steps = -(-NYU_TRAIN_FRAMES // TRAIN_BATCH)
+    evals = -(-NYU_TEST_FRAMES // TRAIN_BATCH)
+    argv = ["--dataset", "nyu", "--data-dir", nyu, "--net", "hourglass_1",
+            "--batch-size", str(TRAIN_BATCH), "--data-mode", mode,
+            "--output-dir", os.path.join(root, f"train_{mode}"),
+            "--epochs", str(DATASET_EPOCHS), "--device", "cuda"]
+    with trainer_marks(profile_epoch=DATASET_EPOCHS) as marks:
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+    check_launches(f"datasets train {mode}", got, {
+        "encode": DATASET_EPOCHS * (steps + evals),
+        "decode": DATASET_EPOCHS * (steps + evals),
+        "decode_backward": DATASET_EPOCHS * steps})
+    if tr.train_data.mode != mode:
+        raise AssertionError(f"trained in {tr.train_data.mode} mode")
+    t_train = {e: marks["test_start"][e] - marks["save_end"][e - 1]
+               for e in (2, 3)}
+    win = (marks["save_end"][1], marks["test_start"][2])
+    waits = in_window(marks["wait"], *win)
+    stages = in_window(marks["stage"], *win)
+    busy = busy_ms(marks["profile"])
+    run = {"launches": got, "wall_s": wall,
+           "warm_epoch_train_s": t_train[2],
+           "train_fps": NYU_TRAIN_FRAMES / t_train[2],
+           "loop_waits_for_batches_s": sum(waits),
+           "staging_s_per_batch": float(np.mean(stages)) if stages else None,
+           "profiled_epoch_train_s": t_train[3],
+           "profiled_epoch_busy_ms": busy,
+           "idle_share": 1.0 - busy / (t_train[3] * 1e3),
+           "device_gaps": device_gaps(marks["profile"]),
+           "test_mpe": marks["tests"][-1][1],
+           "checkpoint": os.path.join(tr.work_dir, "ckpt",
+                                      f"{DATASET_EPOCHS}.pth")}
+    return run
+
+
+def phase_datasets():
+    """Real-dataset layouts on disk through the port's loaders and CLIs
+    (see the module's docstring).  Returns each path's launch counts."""
+    out = {"phase": "datasets", "net": "hourglass_1", "batch": TRAIN_BATCH,
+           "train_frames": NYU_TRAIN_FRAMES, "test_frames": NYU_TEST_FRAMES,
+           "cpu_count": os.cpu_count()}
+    launches = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        nyu = os.path.join(root, "nyu")
+        depths = write_nyu_fixture(nyu, NYU_TRAIN_FRAMES, NYU_TEST_FRAMES)
+        small = write_small_fixtures(root, SMALL_FRAMES)
+        out["fixtures_s"] = time.perf_counter() - t0
+        out["decoder"] = check_decoder(depths)
+        del depths
+        out["items"] = item_times(nyu)
+
+        runs = {}
+        for mode in ("host", "raw"):
+            runs[mode] = train_on_fixture(nyu, root, mode)
+            launches[f"datasets_train_{mode}"] = runs[mode]["launches"]
+        out["train"] = runs
+        out["host_fps_over_raw"] = (runs["host"]["train_fps"]
+                                    / runs["raw"]["train_fps"])
+
+        out["evaluate"] = {}
+        for trained, run in runs.items():
+            mpe = {}
+            for mode in ("host", "raw"):
+                mpe[mode] = evaluate_cli.main([
+                    "--dataset", "nyu", "--data-dir", nyu, "--net",
+                    "hourglass_1", "--batch-size", str(TRAIN_BATCH),
+                    "--data-mode", mode, "--load-model", run["checkpoint"],
+                    "--output-dir", os.path.join(root, f"eval_{trained}_"
+                                                 f"{mode}"),
+                    "--device", "cuda"])
+            res = {"host_mpe": mpe["host"], "raw_mpe": mpe["raw"],
+                   "abs_diff_mm": abs(mpe["host"] - mpe["raw"]),
+                   "atol_mm": HOST_RAW_MPE_ATOL}
+            out["evaluate"][f"trained_{trained}"] = res
+            if not res["abs_diff_mm"] <= HOST_RAW_MPE_ATOL:
+                raise AssertionError(f"host against raw MPE: {res}")
+
+        out["small_datasets"] = {}
+        for name, root_dir in small.items():
+            reset_counts()
+            mpe = evaluate_cli.main(
+                ["--dataset", name, "--data-dir", root_dir, "--net",
+                 "hourglass_1", "--batch-size", str(TRAIN_BATCH),
+                 "--output-dir", os.path.join(root, f"eval_{name}"),
+                 "--device", "cuda"]
+                + (["--allow-centroid-centers"] if name != "icvl" else []))
+            torch.cuda.synchronize()
+            got = counts()
+            check_launches(f"datasets evaluate {name}", got,
+                           {"encode": 1, "decode": 1})
+            launches[f"datasets_eval_{name}"] = got
+            out["small_datasets"][name] = {
+                "joints": {"icvl": 16}.get(name, 21), "frames": SMALL_FRAMES,
+                "test_mpe": mpe, "launches": got}
+            if not np.isfinite(mpe):
+                raise AssertionError(f"{name}: MPE {mpe}")
+    emit(out)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1266,6 +1596,7 @@ def main() -> int:
     launches["trainer"] = phase_trainer(bare_fps,
                                         lambda: train(raw, p, aug))
     launches["train_resnet"] = phase_train_resnet(frames, joints, centers)
+    launches.update(phase_datasets())
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

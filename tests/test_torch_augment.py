@@ -1,12 +1,20 @@
 """The port's train-path device preprocessing (crop, one-of-four
 augmentation, normalize, labels) against the JAX package's, on the same
-raw frames and the same numpy-made augmentation parameters."""
+raw frames and the same numpy-made augmentation parameters.
+
+The crop's nearest-neighbour source index differs between the two for a
+few crop widths: the port takes OpenCV's, in double, as the host crop
+does (tests/test_torch_host_data.py holds the two crops equal), the JAX
+package the float32 quotient x * w / sw.  So these tests run the port's
+preprocessing with its crop gather given the JAX package's index
+(``jax_crop_index``), and compare the rest as before."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import awr_tpu_torch.data.device as port_device
 from awr_tpu.data.device import train_preprocess_batch as jax_preprocess
 from awr_tpu_torch.config import NYU_PARAS
 from awr_tpu_torch.data.device import (draw_augment_params,
@@ -17,6 +25,39 @@ from test_torch_ops import J, raw_batch
 DSIZE = 64
 N = 8  # each op twice
 LABELS = ("jt_uvd", "jt_xyz", "M", "cube", "center_xyz")
+
+
+def jax_index_crop_gather(imgs, p, dsize: int):
+    """The port's crop gather with the JAX package's float32 nearest index
+    (``awr_tpu/data/device.py:96-105``)."""
+    B, H0, W0 = imgs.shape
+    dev = imgs.device
+    col = lambda k: p[k].view(B, 1, 1)  # noqa: E731
+    us, ue, vs, ve = col("us"), col("ue"), col("vs"), col("ve")
+    sw, sh, tx, ty = col("sw"), col("sh"), col("tx"), col("ty")
+    ii = torch.arange(dsize, dtype=torch.int32, device=dev).view(1, dsize, 1)
+    jj = torch.arange(dsize, dtype=torch.int32, device=dev).view(1, 1, dsize)
+    in_paste = (ii >= ty) & (ii < ty + sh) & (jj >= tx) & (jj < tx + sw)
+    cu = torch.minimum(torch.floor(
+        (jj - tx).float() * (ue - us).float()
+        / torch.clamp(sw, min=1).float()).to(torch.int32), ue - us - 1)
+    cv = torch.minimum(torch.floor(
+        (ii - ty).float() * (ve - vs).float()
+        / torch.clamp(sh, min=1).float()).to(torch.int32), ve - vs - 1)
+    su, sv = us + cu, vs + cv
+    in_img = (su >= 0) & (su < W0) & (sv >= 0) & (sv < H0)
+    b = torch.arange(B, device=dev).view(B, 1, 1)
+    val = imgs[b, sv.clamp(0, H0 - 1).long(), su.clamp(0, W0 - 1).long()]
+    zero = torch.zeros((), dtype=val.dtype, device=dev)
+    val = torch.where(in_img, val, zero)
+    val = port_device._z_threshold(val, p["zs"].view(B, 1, 1),
+                                   p["ze"].view(B, 1, 1))
+    return torch.where(in_paste, val, zero)
+
+
+@pytest.fixture(autouse=True)
+def jax_crop_index(monkeypatch):
+    monkeypatch.setattr(port_device, "_crop_gather", jax_index_crop_gather)
 
 
 def inputs(op, seed=4):

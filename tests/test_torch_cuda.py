@@ -42,7 +42,7 @@ ENCODE_SHAPES = [(1, 8), (3, 16), (32, 64)]
 J = 14
 
 
-def inputs(cuda, B, F, dtype=torch.float32, H=None):
+def inputs(cuda, B, F, dtype=torch.float32, H=None, J=J):
     """A seeded (B, 4J, F, F) map, (B, H, H) depth (H = 2F by default)
     with one all-background frame, and (B, J, 3) joints."""
     rng = np.random.RandomState(B * F)
@@ -150,6 +150,38 @@ def test_decode_backward_kernel_matches_plain(cuda, B, F, H, dtype):
     atol = BACKWARD_ATOL[dtype] * float(want.float().abs().max())
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=atol)
     assert not got[0].any()  # the all-background frame
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,H", [(32, 64, 128), (3, 16, 32)])
+@pytest.mark.parametrize("joints", [16, 21])
+def test_kernels_at_icvl_msra_hands17_joint_counts(cuda, joints, B, F, H,
+                                                   dtype):
+    """ICVL's 16 and MSRA's and HANDS17's 21 joints: the decode, its
+    statistics and backward, and the encode, each one launch, against
+    their plain versions at the bars of the J = 14 tests above."""
+    off, img, jt = inputs(cuda, B, F, dtype, H, J=joints)
+    before = (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES,
+              encode_cuda.LAUNCHES)
+    out, stats = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
+    g = torch.randn(B, joints, 3, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(B))
+    grad = decode_cuda.offset2joint_softmax_backward_cuda(off, img, out,
+                                                          stats, g, 0.4)
+    enc = encode_offsets(jt, img, 0.4, F)
+    torch.cuda.synchronize()
+    assert (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES,
+            encode_cuda.LAUNCHES) == tuple(n + 1 for n in before)
+    assert out.shape == (B, joints, 3) and enc.shape == (B, 4 * joints, F, F)
+    torch.testing.assert_close(out, offset2joint_softmax(off.float(), img,
+                                                         0.4),
+                               rtol=0, atol=2e-5)
+    assert_stats_match(stats, offset2joint_softmax_stats(off, img))
+    want = offset2joint_softmax_backward(off, img, 0.4, g)
+    atol = BACKWARD_ATOL[dtype] * float(want.float().abs().max())
+    torch.testing.assert_close(grad.float(), want.float(), rtol=0, atol=atol)
+    torch.testing.assert_close(enc, joint2offset(jt, img, 0.4, F), rtol=0,
+                               atol=1e-5)
 
 
 def test_decode_offsets_has_a_kernel_gradient(cuda):
@@ -350,8 +382,10 @@ def test_trainer_epoch_on_the_card(cuda, tmp_path):
 
     cfg = hourglass_config(img_size=32, batch_size=4, vis_freq=0,
                            print_freq=1000, max_epoch=1, coord_weight=0.1)
-    tr = Trainer(cfg, SyntheticHandDataset(8, J, 32, phase="train"),
-                 SyntheticHandDataset(4, J, 32, phase="test", seed=1),
+    tr = Trainer(cfg,
+                 SyntheticHandDataset(8, J, 32, phase="train", mode="raw"),
+                 SyntheticHandDataset(4, J, 32, phase="test", seed=1,
+                                      mode="raw"),
                  workdir=str(tmp_path), device="cuda")
     before = (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
               decode_cuda.BACKWARD_LAUNCHES)

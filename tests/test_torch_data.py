@@ -16,7 +16,6 @@ from awr_tpu.evaluation import Evaluator as JaxEvaluator
 from awr_tpu.evaluation import load_prediction_txt as jax_load_txt
 from awr_tpu.vis import render_pose as jax_render_pose
 from awr_tpu_torch.config import NYU_PARAS
-from awr_tpu_torch.data.base import DepthDataset
 from awr_tpu_torch.data.pipeline import PrefetchLoader, prefetch_to_device
 from awr_tpu_torch.data.synthetic import SyntheticHandDataset
 from awr_tpu_torch.data.transforms import normalize_labels
@@ -34,7 +33,7 @@ N = 6
 @pytest.mark.parametrize("seed", [0, 1])
 def test_synthetic_raw_items_bit_equal_jax(layout, seed):
     ours = SyntheticHandDataset(N, 14, 128, phase="train", seed=seed,
-                                layout=layout)
+                                layout=layout, mode="raw")
     theirs = JaxSynthetic(N, 14, 128, phase="train", seed=seed,
                           layout=layout, mode="raw")
     assert len(ours) == len(theirs) == N
@@ -52,11 +51,29 @@ def test_synthetic_raw_items_bit_equal_jax(layout, seed):
     np.testing.assert_array_equal(ours.raw_item(0)[0], theirs.raw_item(0)[0])
 
 
+@pytest.mark.parametrize("phase", ["train", "test"])
+def test_synthetic_host_items_match_jax(phase):
+    """Host mode, the default of both packages: the reference's crop,
+    augmentation (train: one op from RandomState(23455), drawn in order)
+    and normalization on the host, item for item.  Measured bit-equal."""
+    ours = SyntheticHandDataset(N, 14, 32, phase=phase, seed=2)
+    theirs = JaxSynthetic(N, 14, 32, phase=phase, seed=2)
+    assert ours.mode == theirs.mode == "host"
+    for i in list(range(N)) * 2:
+        got, want = ours[i], theirs[i]
+        assert got.keys() == want.keys()
+        for k in want:
+            assert got[k].dtype == want[k].dtype == np.float32, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_host_mode_raises():
-    with pytest.raises(NotImplementedError, match="host mode"):
-        SyntheticHandDataset(2, mode="host")
-    with pytest.raises(NotImplementedError, match="host mode"):
-        DepthDataset().process(None, None, None, None)
+    """Host mode is served now, and is the default, as in the JAX package
+    (tests/test_torch_host_data.py holds its items against the JAX
+    package's); an unknown mode or layout still raises."""
+    assert SyntheticHandDataset(2).mode == "host"
+    with pytest.raises(ValueError, match="data mode"):
+        SyntheticHandDataset(2, mode="device")
     with pytest.raises(ValueError, match="layout"):
         SyntheticHandDataset(2, layout="ring")
 
@@ -78,7 +95,8 @@ def test_normalize_labels_matches_jax():
 def test_prefetch_loader_matches_jax(workers):
     """The same shuffle from the same RandomState, the same batches in
     the same order, the partial last batch included."""
-    ours = PrefetchLoader(SyntheticHandDataset(7, 14, 32, seed=3), 3,
+    ours = PrefetchLoader(SyntheticHandDataset(7, 14, 32, seed=3,
+                                               mode="raw"), 3,
                           shuffle=True, num_workers=workers,
                           rng=np.random.RandomState(11))
     theirs = JaxPrefetchLoader(JaxSynthetic(7, 14, 32, seed=3, mode="raw"),
@@ -99,7 +117,7 @@ def test_prefetch_loader_drop_last_and_worker_error():
                 raise KeyError("bad item")
             return super().__getitem__(i)
 
-    loader = PrefetchLoader(SyntheticHandDataset(7, 14, 32), 3,
+    loader = PrefetchLoader(SyntheticHandDataset(7, 14, 32, mode="raw"), 3,
                             drop_last=True)
     assert len(loader) == 2 and len(list(loader)) == 2
     with pytest.raises(KeyError, match="bad item"):

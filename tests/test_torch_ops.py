@@ -373,7 +373,7 @@ def test_crop_normalize_bit_identical(dsize):
 
 def test_synthetic_frames_match_dataset():
     frames, joints, centers = synthetic_frames(3, J, seed=5)
-    ds = SyntheticHandDataset(3, J, 128, seed=5)
+    ds = SyntheticHandDataset(3, J, 128, seed=5, mode="raw")
     for i in range(3):
         img, jt, c = ds.raw_item(i)
         np.testing.assert_array_equal(frames[i], img)

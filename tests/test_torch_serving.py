@@ -3,6 +3,7 @@
 boundary."""
 
 import ast
+import os
 import pathlib
 
 import numpy as np
@@ -115,3 +116,35 @@ def test_port_imports_no_jax_and_nothing_of_awr_tpu(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             roots.add(node.module.split(".")[0])
     assert not roots & FORBIDDEN, roots & FORBIDDEN
+
+
+# where the port may import scipy (``scipy.io``, for NYU's
+# joint_data.mat): inside these functions only, never at module level
+SCIPY_ALLOWED = {"awr_tpu_torch/data/nyu.py": {"load_labels"},
+                 "chip_smoke.py": {"write_nyu_fixture"}}
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*(ROOT / "awr_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_port_imports_scipy_only_in_the_nyu_label_loader(path):
+    tree = ast.parse((ROOT / path).read_text(), path)
+    found = []
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            name = (child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func)
+            mods = []
+            if isinstance(child, ast.Import):
+                mods = [a.name for a in child.names]
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                mods = [child.module]
+            found.extend((m, func) for m in mods
+                         if m.split(".")[0] == "scipy")
+            walk(child, name)
+
+    walk(tree, None)
+    allowed = SCIPY_ALLOWED.get(path.replace(os.sep, "/"), set())
+    assert all(m == "scipy.io" and func in allowed for m, func in found), \
+        found

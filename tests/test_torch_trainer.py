@@ -19,15 +19,18 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_nyu_files import write_fake_nyu
 from torch_port_weights import IMG, random_variables
 
 import awr_tpu.data.device as jax_device
 from awr_tpu.config import Config as JaxConfig
+from awr_tpu.data.nyu import NYUDataset as JaxNYU
 from awr_tpu.data.synthetic import SyntheticHandDataset as JaxSynthetic
 from awr_tpu.parallel.mesh import replicated
 from awr_tpu.training.trainer import Trainer as JaxTrainer
 from awr_tpu_torch.config import hourglass_config
 from awr_tpu_torch.data import device as port_device
+from awr_tpu_torch.data.nyu import NYUDataset
 from awr_tpu_torch.data.synthetic import SyntheticHandDataset
 from awr_tpu_torch.models.weights import load_flax_variables
 from awr_tpu_torch.training import evaluate, train
@@ -165,6 +168,57 @@ def test_two_epochs_match_jax(tmp_path, monkeypatch):
         "1.pth", "2.pth"]
 
 
+@pytest.fixture(scope="module")
+def nyu_root(tmp_path_factory):
+    """A 4-frame NYU-layout directory (tests/test_nyu_files.py's writer:
+    cv2 PNGs, a scipy joint_data.mat, refined centers)."""
+    return write_fake_nyu(str(tmp_path_factory.mktemp("nyu")))
+
+
+def test_host_mode_two_epochs_match_jax(tmp_path, nyu_root):
+    """Host mode, the JAX CLI's default, on an NYU-layout directory: 2
+    epochs of one augmented Adam step from identical weights, at
+    test_two_epochs_match_jax's bars (first step rtol 1e-5, later steps
+    and per-epoch test MPE 3e-2).  Both Trainers load host-mode training
+    on one worker, so both datasets draw their augmentation from
+    RandomState(23455) in the same order, and the port's host chain
+    gives the JAX package's items (tests/test_torch_datasets.py)."""
+    _, variables = random_variables(1, seed=3)
+    kw = dict(max_epoch=2, lr=1e-4)
+    runs = {}
+    for side, cls in (("jax", JaxNYU), ("port", NYUDataset)):
+        train_ds = cls(nyu_root, "train", img_size=IMG)
+        test_ds = cls(nyu_root, "test", img_size=IMG)
+        if side == "jax":
+            tr = jax_trainer(tmp_path, variables, train_ds, test_ds, **kw)
+        else:
+            tr = port_trainer(tmp_path / "port", variables, train_ds,
+                              test_ds, **kw)
+        losses, tests = [], []
+        step, test = tr._train_step, tr.test
+
+        def step_spy(*args, _step=step, _jax=side == "jax"):
+            out = _step(*args)
+            losses.append(float((out[1] if _jax else out)["loss"]))
+            return out
+
+        def test_spy(epoch=0, _test=test):
+            tests.append(_test(epoch))
+            return tests[-1]
+
+        tr._train_step, tr.test = step_spy, test_spy
+        tr.train()
+        tr.close()
+        runs[side] = losses, tests, tr.best_records
+    (jl, jt, jb), (pl, pt, pb) = runs["jax"], runs["port"]
+    assert len(pl) == len(jl) == 2
+    np.testing.assert_allclose(pl[:1], jl[:1], rtol=1e-5)
+    np.testing.assert_allclose(pl, jl, rtol=3e-2)
+    np.testing.assert_allclose([m for m, _ in pt], [m for m, _ in jt],
+                               rtol=3e-2)
+    assert (pb["epoch"], pb["best_epoch"]) == (jb["epoch"], jb["best_epoch"])
+
+
 def params(tr):
     return {k: v.detach().clone() for k, v in tr.model.state_dict().items()}
 
@@ -200,8 +254,9 @@ def test_resume_equals_straight_run(tmp_path):
                                    err_msg=k)
 
 
-CLI = ["--net", "hourglass_1", "--synthetic", "--img-size", str(IMG),
-       "--batch-size", str(B), "--synthetic-size", "4"]
+CLI = ["--net", "hourglass_1", "--synthetic", "--data-mode", "raw",
+       "--img-size", str(IMG), "--batch-size", str(B), "--synthetic-size",
+       "4"]
 
 
 def test_cli_train_then_evaluate_on_cpu(tmp_path, capsys):
@@ -232,10 +287,13 @@ def test_cli_without_device_raises_without_gpu(cli, tmp_path, monkeypatch):
 
 
 def test_cli_host_mode_and_real_datasets_raise(tmp_path):
+    """Host mode and the real datasets are served now
+    (tests/test_torch_datasets.py runs the CLIs on an NYU-layout
+    directory); a directory without the dataset's files, and bfloat16,
+    still raise."""
     out = ["--output-dir", str(tmp_path), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="host mode"):
-        evaluate.main(CLI + out + ["--data-mode", "host"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        evaluate.main(["--net", "hourglass_1"] + out)
+    with pytest.raises(FileNotFoundError, match="NYU split directory"):
+        evaluate.main(["--net", "hourglass_1", "--data-dir",
+                       str(tmp_path / "absent")] + out)
     with pytest.raises(NotImplementedError, match="float32"):
         evaluate.main(CLI + out + ["--compute-dtype", "bfloat16"])

@@ -131,8 +131,10 @@ def test_trainer_watchdog_armed_and_disarmed(tmp_path, monkeypatch):
     """A healthy one-epoch run under a generous timeout completes and
     leaves the watchdog disarmed."""
     tr = Trainer(small_cfg(step_timeout_s=300.0),
-                 SyntheticHandDataset(8, 14, 32, phase="train", seed=0),
-                 SyntheticHandDataset(4, 14, 32, phase="test", seed=1),
+                 SyntheticHandDataset(8, 14, 32, phase="train", seed=0,
+                                      mode="raw"),
+                 SyntheticHandDataset(4, 14, 32, phase="test", seed=1,
+                                      mode="raw"),
                  workdir=str(tmp_path), device="cpu")
     seen = {}
     impl = Trainer._train_impl
@@ -162,7 +164,8 @@ def test_trainer_stall_kills_process(tmp_path):
         "Trainer._train_impl = hang\n"
         "cfg = resnet_config(18, img_size=32, batch_size=4, vis_freq=0,\n"
         "                    max_epoch=1, step_timeout_s=1.0)\n"
-        "train = SyntheticHandDataset(8, 14, 32, phase='train', seed=0)\n"
+        "train = SyntheticHandDataset(8, 14, 32, phase='train', seed=0,\n"
+        "                             mode='raw')\n"
         f"tr = Trainer(cfg, train, workdir={str(tmp_path)!r},\n"
         "             device='cpu')\n"
         "tr.train()\n"
