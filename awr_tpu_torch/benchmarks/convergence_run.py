@@ -13,6 +13,10 @@ Usage:
   python -m awr_tpu_torch.benchmarks.convergence_run --net hourglass_1 \\
       --epochs 200 --coord-weight 0.1 \\
       --out runs/torch_convergence_hourglass_h100.json
+  # the same recipe with the backbone in bf16
+  python -m awr_tpu_torch.benchmarks.convergence_run --net hourglass_1 \\
+      --epochs 200 --coord-weight 0.1 --compute-dtype bfloat16 \\
+      --out runs/torch_convergence_hourglass_bf16_h100.json
 
 The reference recipe analog: batch 32, Adam lr 1e-3 (reference
 config.py:36-46); StepLR decay pushed late (step=100), since this run is
@@ -65,6 +69,8 @@ def main(argv=None):
                     help="arm the stall watchdog (Config.step_timeout_s) "
                          "so a wedged device call exits 86 for "
                          "training.supervise to restart")
+    ap.add_argument("--compute-dtype", default="float32",
+                    choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -73,6 +79,7 @@ def main(argv=None):
                  batch_size=32, vis_freq=0, print_freq=1000,
                  max_epoch=args.epochs, step=100, lr=args.lr,
                  coord_weight=args.coord_weight,
+                 compute_dtype=args.compute_dtype,
                  exp_id=f"convergence_{args.net}",
                  ckpt_max_to_keep=2,
                  step_timeout_s=args.step_timeout or None)
@@ -110,6 +117,7 @@ def main(argv=None):
     result = dict(net=args.net, epochs=args.epochs,
                   steps=args.epochs * (args.train_size // 32),
                   coord_weight=args.coord_weight,
+                  compute_dtype=args.compute_dtype,
                   init_test_mpe_mm=float(init_mpe),
                   final_test_mpe_mm=float(final_mpe),
                   improvement_x=float(improvement),

@@ -18,6 +18,11 @@ JOINT = {"nyu": 14, "icvl": 16, "msra": 21, "hands17": 21}
 STEP = {"nyu": 30, "icvl": 10, "msra": 10, "hands17": 5}
 EPOCH = {"nyu": 40, "icvl": 40, "msra": 25, "hands17": 10}
 
+# Compute dtypes by name (the JAX package's ``DTYPES``).  Parameters,
+# BatchNorm statistics, optimizer state and checkpoints stay float32 in
+# either.
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
 # Camera intrinsics (fx, fy, u0, v0) per dataset.
 NYU_PARAS = (588.03, 587.07, 320.0, 240.0)
 DATASET_PARAS = {
@@ -81,7 +86,8 @@ class Config:
 
     # --- additions of the JAX package kept by the port ---
     param_dtype: str = "float32"
-    # Only "float32" is served so far.
+    # "float32" or "bfloat16": the dtype the convs, BatchNorm outputs and
+    # heads run in; the dense map leaves the model as float32
     compute_dtype: str = "float32"
     supervise_all_stacks: bool = True
     device_prefetch: int = 2
@@ -92,10 +98,9 @@ class Config:
     ckpt_max_to_keep: Optional[int] = None
 
     def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype {self.compute_dtype!r}: only float32 is "
-                "served")
+        if self.compute_dtype not in DTYPES:
+            raise ValueError(f"compute_dtype {self.compute_dtype!r}: one of "
+                             f"{sorted(DTYPES)}")
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -104,6 +109,10 @@ class Config:
     def feature_size(self) -> int:
         """Side of the dense 4J-channel output map."""
         return self.img_size // self.downsample
+
+    @property
+    def torch_compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.compute_dtype]
 
     @property
     def nstack(self) -> int:

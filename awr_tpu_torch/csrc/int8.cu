@@ -9,7 +9,9 @@
 //   awr_s8_deconv    <- deconv4x4s2_int8 (:127, body _deconv_kernel :89)
 //                       ConvTranspose2d(k4, s2, p1) on int8 codes as four
 //                       polyphase (B*H*W, 4*C_in) @ (4*C_in, C_out) GEMMs,
-//                       int32 accumulate, out = float(acc) * scale[oc].
+//                       int32 accumulate, out = float(acc) * scale[oc],
+//                       written as float32 or, rounded once, bfloat16 (the
+//                       Pallas kernel's out_dtype).
 //
 // Plain versions: awr_tpu_torch/ops/int8.py (int8_matmul,
 // deconv4x4s2_int8). Tiles and splits are chosen on the host
@@ -18,8 +20,9 @@
 // Bound. Most of resnet_18's GEMMs move more bytes than the int8 tensor
 // cores need time for (the N = 64 shapes most of all); the deep ones
 // (layers 3-4) are small and leave SMs idle. The deconv at the decoder's
-// largest shape is bound by its float32 output (B = 32, 256 -> 256
-// channels at 32x32 -> 64x64: 134 MB written, 9.5 MB read).
+// largest shape is bound by its output (B = 32, 256 -> 256 channels at
+// 32x32 -> 64x64: 134 MB written in float32, 67 MB in bfloat16; 9.5 MB
+// read).
 //
 // Design. Both kernels share one pipeline (Pipe, tc_setup, tc_claim, ...):
 // - 288 threads a block: two consumer warpgroups (64 rows of the 128-row
@@ -53,7 +56,12 @@
 //   whole runs of 2 tw floats: the tile is staged in shared memory
 //   (beside the ring) and written by one TMA store of a box of the NCHW
 //   output, in full sectors (the output is 93 % of deconv2's bytes). The
-//   epilogue is __fmul_rn(__int2float_rn(acc), scale[oc]). One
+//   epilogue is __fmul_rn(__int2float_rn(acc), scale[oc]), stored as is
+//   (float32) or rounded to nearest even (bfloat16; the plain version's
+//   .to(torch.bfloat16) of the same float32 product). The TMA store
+//   needs the output rows 2y + 1 16-byte aligned: 2W elements of 16
+//   bytes' multiple (W even in float32, W % 4 == 0 in bfloat16); other
+//   widths are stored by the threads from shared memory. One
 //   persistent block an SM walks the units, its producer loading the
 //   next unit while the consumers store one. Channels past C_in read as
 //   zero in the A box, so the B box's K columns past a tap's C_in (the
@@ -63,6 +71,7 @@
 // - K % 16 != 0 (the 5x5 stem, K = 25): s8_gemm_kernel, byte loads into
 //   padded shared rows and __dp4a on the CUDA cores.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -99,7 +108,7 @@ struct Pipe {
 template <int BN>
 using GemmPipe = Pipe<BN == 128 ? 3 : 4, kABytes + BN * kTcBK>;
 // an A tile and up to two weight tiles a stage; the extra bytes hold the
-// float32 output tile (128 pixels, 2 column phases, 64 channels)
+// output tile (128 pixels, 2 column phases, 64 channels; float32 at most)
 using DeconvPipe = Pipe<4, kABytes + 2 * kDeconvBN * kTcBK,
                         kTcBM * 2 * kDeconvBN * 4>;
 
@@ -272,25 +281,50 @@ __global__ void __launch_bounds__(kTcThreads, 2)
   }
 }
 
-// out (B, C_out, 2H, 2W) float32 = ConvTranspose2d(k4, s2, p1)(x) * scale.
+// The deconv's output element T and its pair of column phases (2x, 2x + 1).
+template <class T>
+struct OutPair;
+template <>
+struct OutPair<float> {
+  using Pair = float2;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  static __device__ __forceinline__ float2 make(float c0, float c1) {
+    return make_float2(c0, c1);
+  }
+};
+template <>
+struct OutPair<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kTma = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  // each rounded to nearest even
+  static __device__ __forceinline__ __nv_bfloat162 make(float c0, float c1) {
+    return __floats2bfloat162_rn(c0, c1);
+  }
+};
+
+// out (B, C_out, 2H, 2W) T = ConvTranspose2d(k4, s2, p1)(x) * scale, T
+// float or __nv_bfloat16.
 // map_x: 4-D map of x (B, H, W, C_in) int8 NHWC, box (128, tw, th, tb);
 // map_w: 2-D map of wph (4 C_out, 4 C_in) int8, box (128, 64): for phase
 // p = 2a + c, row p C_out + oc holds the taps t = 2 di + dj, C_in each;
-// with tma_out (W even), map_o<a>: 4-D float32 maps of the output rows
-// 2y + a, (2W, H, C_out, B), box (2 tw, th, 64, tb). Persistent: block z
+// with tma_out (2W T 16-byte aligned), map_o<a>: 4-D T maps of the output
+// rows 2y + a, (2W, H, C_out, B), box (2 tw, th, 64, tb). Persistent: block z
 // takes the work units z, z + gridDim.x, ...; unit u is row phase u % 2,
 // channel tile u / 2 % oc_tiles, pixel tile u / (2 oc_tiles). The
 // producer runs on into the next unit while the consumers store one.
+template <class T>
 __global__ void __launch_bounds__(kTcThreads, 1)
     s8_deconv_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
                            const __grid_constant__ CUtensorMap map_w,
                            const __grid_constant__ CUtensorMap map_o0,
                            const __grid_constant__ CUtensorMap map_o1,
                            const float* __restrict__ scale,
-                           float* __restrict__ out, int B, int H, int W,
+                           T* __restrict__ out, int B, int H, int W,
                            int Cin, int Cout, int tw, int th, int tb,
                            int tma_out) {
   using P = DeconvPipe;
+  using Out = OutPair<T>;
+  using Pair = typename Out::Pair;
   constexpr int kBBytes = kDeconvBN * kTcBK;
   extern __shared__ uint8_t smem[];
   const Ring ring = tc_setup<P>(smem);
@@ -341,7 +375,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // tw and th are powers of two
   const int lw = __ffs(tw) - 1;
   const int lh = __ffs(th) - 1;
-  float2* tile2 = shared_ptr<float2>(smem, ring.extra);
+  Pair* tile2 = shared_ptr<Pair>(smem, ring.extra);
   const int r0 = wg * 64 + (warp % 4) * 16 + lane / 4;
   const int OH = 2 * H;
   const int OW = 2 * W;
@@ -378,7 +412,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     fence_regs(acc1);
     tc_release<P>(ring, i - 1);
 
-    // Stage the scaled tile as [bz][oc][y][2 x + c] floats: each output
+    // Stage the scaled tile as [bz][oc][y][2 x + c] elements: each output
     // row 2 y + a of an image and channel is a run of 2 tw. The previous
     // unit's store must have read the buffer first.
     if (threadIdx.x == 0) bulk_wait_read();
@@ -397,8 +431,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
           const float s = oc0 + oc < Cout ? __ldg(scale + oc0 + oc) : 0.0f;
           const int a = 4 * j + 2 * h + e;
           tile2[((((bz * kDeconvBN + oc) << lh) + y) << lw) + x] =
-              make_float2(__fmul_rn(__int2float_rn(acc0[a]), s),
-                          __fmul_rn(__int2float_rn(acc1[a]), s));
+              Out::make(__fmul_rn(__int2float_rn(acc0[a]), s),
+                        __fmul_rn(__int2float_rn(acc1[a]), s));
         }
       }
     }
@@ -412,7 +446,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       continue;
     }
     named_barrier(1, kConsumers);
-    const int n2 = tb * kDeconvBN << (lh + lw);  // float2 of the tile
+    const int n2 = tb * kDeconvBN << (lh + lw);  // pairs of the tile
     for (int idx = threadIdx.x; idx < n2; idx += kConsumers) {
       const int x = x0 + (idx & (tw - 1));
       const int line = idx >> lw;  // (bz, oc, y)
@@ -420,7 +454,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       const int oc = oc0 + ((line >> lh) & (kDeconvBN - 1));
       const int b = b0 + (line >> (lh + kDeconvBNLog));
       if (x < W && y < H && b < B && oc < Cout)
-        *reinterpret_cast<float2*>(
+        *reinterpret_cast<Pair*>(
             out + ((static_cast<size_t>(b) * Cout + oc) * OH + 2 * y + pa) *
                       OW + 2 * x) = tile2[idx];
     }
@@ -591,8 +625,9 @@ int launch_gemm_tc(const int8_t* A, const int8_t* Bt, int32_t* C, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class T>
 int launch_deconv(const int8_t* x, const int8_t* wq, int8_t* wph,
-                  const float* scale, float* out, int B, int H, int W,
+                  const float* scale, T* out, int B, int H, int W,
                   int Cin, int Cout, int tw, int th, int tb,
                   cudaStream_t stream) {
   CUtensorMap mx, mw, mo[2] = {};
@@ -609,14 +644,16 @@ int launch_deconv(const int8_t* x, const int8_t* wq, int8_t* wph,
                                 static_cast<cuuint64_t>(4) * Cout};
   const cuuint64_t strides_w[1] = {static_cast<cuuint64_t>(4) * Cin};
   const cuuint32_t box_w[2] = {kTcBK, kDeconvBN};
-  // the output rows 2y + a: 16-byte aligned and strided when W is even
-  const int tma_out = W % 2 == 0;
+  // the output rows 2y + a: 16-byte aligned and strided when a row of 2W
+  // elements is (float32: W even; bfloat16: W % 4 == 0)
+  const cuuint64_t row = static_cast<cuuint64_t>(2) * W * sizeof(T);
+  const int tma_out = row % 16 == 0;
   const cuuint64_t dims_o[4] = {
       static_cast<cuuint64_t>(2) * W, static_cast<cuuint64_t>(H),
       static_cast<cuuint64_t>(Cout), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides_o[3] = {
-      static_cast<cuuint64_t>(16) * W, static_cast<cuuint64_t>(16) * H * W,
-      static_cast<cuuint64_t>(16) * H * W * Cout};
+  // byte strides: two output rows (a step of y), a channel's 2H rows, an
+  // image's C_out channels
+  const cuuint64_t strides_o[3] = {2 * row, 2 * row * H, 2 * row * H * Cout};
   const cuuint32_t box_o[4] = {static_cast<cuuint32_t>(2 * tw),
                                static_cast<cuuint32_t>(th), kDeconvBN,
                                static_cast<cuuint32_t>(tb)};
@@ -624,12 +661,12 @@ int launch_deconv(const int8_t* x, const int8_t* wq, int8_t* wph,
   int err = encode_s8(&mx, x, 4, dims_x, strides_x, box_x);
   if (err == 0) err = encode_s8(&mw, wph, 2, dims_w, strides_w, box_w);
   for (int a = 0; a < 2 && err == 0 && tma_out; ++a)
-    err = encode(&mo[a], CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
-                 CU_TENSOR_MAP_SWIZZLE_NONE, out + static_cast<size_t>(2) * W * a,
-                 4, dims_o, strides_o, box_o);
+    err = encode(&mo[a], OutPair<T>::kTma, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 out + static_cast<size_t>(2) * W * a, 4, dims_o, strides_o,
+                 box_o);
   static bool smem_set[64];
   if (err == 0)
-    err = allow_smem(s8_deconv_wgmma_kernel, DeconvPipe::kSmem, smem_set);
+    err = allow_smem(s8_deconv_wgmma_kernel<T>, DeconvPipe::kSmem, smem_set);
   if (err != 0) return err;
   s8_deconv_weights_kernel<<<dim3((Cin + 31) / 32, (Cout + 31) / 32, 16),
                              dim3(32, 8), 0, stream>>>(wq, wph, Cin, Cout);
@@ -642,7 +679,7 @@ int launch_deconv(const int8_t* x, const int8_t* wq, int8_t* wph,
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
   if (err != 0) return err;
   const dim3 grid(units < sms ? units : sms);
-  s8_deconv_wgmma_kernel<<<grid, kTcThreads, DeconvPipe::kSmem, stream>>>(
+  s8_deconv_wgmma_kernel<T><<<grid, kTcThreads, DeconvPipe::kSmem, stream>>>(
       mx, mw, mo[0], mo[1], scale, out, B, H, W, Cin, Cout, tw, th, tb,
       tma_out);
   return static_cast<int>(cudaGetLastError());
@@ -685,13 +722,17 @@ extern "C" int awr_s8_gemm(const int8_t* A, const int8_t* Bt, int32_t* C,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C_in % 16 == 0, x 16-byte aligned, tw * th * tb == 128; wph: scratch
-// of 16 C_in C_out bytes, 16-byte aligned, for the weight operands that
-// s8_deconv_weights_kernel makes from wq first.
+// C_in % 16 == 0, x and out 16-byte aligned, tw * th * tb == 128; wph:
+// scratch of 16 C_in C_out bytes, 16-byte aligned, for the weight
+// operands that s8_deconv_weights_kernel makes from wq first; out is
+// float32, or bfloat16 where out_bf16.
 extern "C" int awr_s8_deconv(const int8_t* x, const int8_t* wq, int8_t* wph,
-                             const float* scale, float* out, int B, int H,
+                             const float* scale, void* out, int B, int H,
                              int W, int Cin, int Cout, int tw, int th, int tb,
-                             cudaStream_t stream) {
-  return launch_deconv(x, wq, wph, scale, out, B, H, W, Cin, Cout, tw, th, tb,
-                       stream);
+                             int out_bf16, cudaStream_t stream) {
+  if (out_bf16)
+    return launch_deconv(x, wq, wph, scale, static_cast<__nv_bfloat16*>(out),
+                         B, H, W, Cin, Cout, tw, th, tb, stream);
+  return launch_deconv(x, wq, wph, scale, static_cast<float*>(out), B, H, W,
+                       Cin, Cout, tw, th, tb, stream);
 }

@@ -3,6 +3,15 @@
 Convs use symmetric padding ``(k-1)//2``, as the reference's; BatchNorm
 is ``BatchNorm2d(eps=1e-5, momentum=0.1)``, whose eval rule and
 running-stat update are the reference's.
+
+Compute dtype (the JAX package's module ``dtype``): every conv and
+transposed conv is a :class:`Conv2d` / :class:`ConvTranspose2d` whose
+``compute_dtype`` (None: its weight's dtype) its input, weight and bias
+are cast to; the parameters stay as they are (float32).  BatchNorm
+takes the conv's output as it comes and returns it in that dtype, its
+statistics and affine parameters float32 (under bfloat16 it normalizes
+in float32, as the JAX package's ``TorchBatchNorm``).
+:func:`set_compute_dtype` sets the dtype of a whole model.
 """
 
 from __future__ import annotations
@@ -19,10 +28,55 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
+class ComputeDtype:
+    """A module that runs in ``compute_dtype`` (None: its parameters')."""
+
+    compute_dtype = None
+
+    def _cast(self, *ts):
+        dt = self.compute_dtype
+        return [t if t is None or dt is None else t.to(dt) for t in ts]
+
+
+class Conv2d(ComputeDtype, nn.Conv2d):
+    """``nn.Conv2d`` in ``compute_dtype``; the same parameters."""
+
+    def forward(self, x):
+        return self._conv_forward(*self._cast(x, self.weight, self.bias))
+
+
+class ConvTranspose2d(ComputeDtype, nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` in ``compute_dtype``; the same parameters."""
+
+    def forward(self, x, output_size=None):
+        x, weight, bias = self._cast(x, self.weight, self.bias)
+        output_padding = self._output_padding(
+            x, output_size, self.stride, self.padding, self.kernel_size, 2,
+            self.dilation)
+        return F.conv_transpose2d(x, weight, bias, self.stride, self.padding,
+                                  output_padding, self.groups, self.dilation)
+
+
+def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
+    """Run every conv, transposed conv and backbone of ``model`` in
+    ``dtype`` (a ``torch.dtype``, or None for the parameters' dtype)."""
+    for m in model.modules():
+        if isinstance(m, ComputeDtype):
+            m.compute_dtype = dtype
+    return model
+
+
+def map_out(x: torch.Tensor, dtype) -> torch.Tensor:
+    """A backbone's dense map as it leaves the model: float32 under a
+    compute dtype (the JAX package's ``pred.astype(jnp.float32)``), so
+    the decode and the loss take float32; else as computed."""
+    return x if dtype is None else x.float()
+
+
 def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1,
-           bias: bool = True) -> nn.Conv2d:
-    return nn.Conv2d(in_ch, out_ch, kernel, stride, (kernel - 1) // 2,
-                     bias=bias)
+           bias: bool = True) -> Conv2d:
+    return Conv2d(in_ch, out_ch, kernel, stride, (kernel - 1) // 2,
+                  bias=bias)
 
 
 def batch_norm(ch: int) -> nn.BatchNorm2d:

@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from awr_tpu_torch.models.common import (batch_norm, conv2d, max_pool,
-                                         rematerialized, torch_default_init_,
+from awr_tpu_torch.models.common import (ComputeDtype, batch_norm, conv2d,
+                                         map_out, max_pool, rematerialized,
+                                         torch_default_init_,
                                          upsample_nearest_2x)
 
 
@@ -84,8 +85,12 @@ class HourglassBlock(nn.Module):
         return self.up1(x) + upsample_nearest_2x(low)
 
 
-class PoseNet(nn.Module):
-    """(B, 1, H, W) depth -> (S, B, 4J, H/2, W/2) per-stack dense maps."""
+class PoseNet(ComputeDtype, nn.Module):
+    """(B, 1, H, W) depth -> (S, B, 4J, H/2, W/2) per-stack dense maps.
+
+    Under a compute dtype the input is cast to it, every layer runs in it
+    and the maps leave as float32; the merge into the next stack takes a
+    stack's map before that cast (the JAX package's)."""
 
     def __init__(self, nstack: int = 1, joint_num: int = 14,
                  inp_dim: int = 256, increase: int = 0, remat: bool = False):
@@ -121,6 +126,7 @@ class PoseNet(nn.Module):
         torch_default_init_(self, generator)
 
     def forward(self, imgs):
+        (imgs,) = self._cast(imgs)
         x = self.pre(imgs)
         preds = []
         for i in range(self.nstack):
@@ -129,7 +135,7 @@ class PoseNet(nn.Module):
             feature = self.features[i](hg)
             pred = torch.cat([self.outs_1[i](feature),
                               self.outs_2[i](feature)], dim=1)
-            preds.append(pred)
+            preds.append(map_out(pred, self.compute_dtype))
             if i < self.nstack - 1:
                 x = (x + self.merge_preds[i](pred)
                      + self.merge_features[i](feature))

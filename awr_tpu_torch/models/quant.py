@@ -12,14 +12,20 @@
   holds exactly) plus the int8 GEMM; an int8 transposed conv is the
   polyphase int8 deconv.  On a CUDA tensor both are the hand-written
   kernels (``ops/int8_cuda.py``), on a CPU tensor their plain versions
-  (``ops/int8.py``).  BatchNorm, ReLU, pooling, residual adds and the
-  prediction heads stay in float32.
+  (``ops/int8.py``).  The dequantized product is float32, rounded once
+  to the compute dtype (the layer's ``compute_dtype``; float32 if None):
+  under bfloat16 the int8 deconv kernel rounds it in its epilogue.
+  BatchNorm, ReLU, pooling, residual adds and the prediction heads stay
+  float, in the compute dtype.
 
-:class:`QuantConv` and :class:`QuantConvTranspose` are ``nn.Conv2d`` and
-``nn.ConvTranspose2d`` with a ``mode``: "off" (the float layer), "calib"
-(the float layer, recording the input's amplitude) or "int8".  The
-activation scale is a non-persistent buffer, so the ``state_dict`` keys
-are the same in every mode and a reference checkpoint loads unchanged.
+:class:`QuantConv` and :class:`QuantConvTranspose` are the port's
+``Conv2d`` and ``ConvTranspose2d`` with a ``mode``: "off" (the float
+layer), "calib" (the float layer, recording the input's amplitude),
+"int8", or "int8_w" (weights only: the weight's int8 codes times its
+scales, in the compute dtype, through the float layer; for telling
+weight rounding from activation clipping).  The activation scale is a
+non-persistent buffer, so the ``state_dict`` keys are the same in every
+mode and a reference checkpoint loads unchanged.
 """
 
 from __future__ import annotations
@@ -30,11 +36,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from awr_tpu_torch.models.common import Conv2d, ConvTranspose2d
 from awr_tpu_torch.ops import int8 as int8_plain
 from awr_tpu_torch.ops import int8_cuda
 
 _QMAX = 127.0
-MODES = ("off", "calib", "int8")
+MODES = ("off", "calib", "int8", "int8_w")
 
 
 def _quantize_weights(weight: torch.Tensor, dims):
@@ -81,10 +88,10 @@ def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return int8_plain.int8_matmul(a, b)
 
 
-def _int8_deconv(xq, wq, scale) -> torch.Tensor:
+def _int8_deconv(xq, wq, scale, out_dtype) -> torch.Tensor:
     if xq.device.type == "cuda":
-        return int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale)
-    return int8_plain.deconv4x4s2_int8(xq, wq, scale)
+        return int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale, out_dtype)
+    return int8_plain.deconv4x4s2_int8(xq, wq, scale, out_dtype)
 
 
 def _to_int8(codes: torch.Tensor) -> torch.Tensor:
@@ -104,9 +111,18 @@ class _QuantMixin:
             amax = _calib_amax(x, self.calib_percentile)
             self.act_scale.copy_(torch.maximum(self.act_scale, amax / _QMAX))
 
+    def _out_dtype(self) -> torch.dtype:
+        return self.compute_dtype or torch.float32
 
-class QuantConv(_QuantMixin, nn.Conv2d):
-    """``nn.Conv2d`` with an int8 mode (the JAX ``QuantConv``)."""
+    def _weight_only(self, dims) -> torch.Tensor:
+        """The weight's int8 codes times their scales, in the compute
+        dtype (the weight's own if None)."""
+        wq, s_w = _quantize_weights(self.weight, dims)
+        return (wq * s_w).to(self.compute_dtype or self.weight.dtype)
+
+
+class QuantConv(_QuantMixin, Conv2d):
+    """``Conv2d`` with int8 modes (the JAX ``QuantConv``)."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -115,6 +131,9 @@ class QuantConv(_QuantMixin, nn.Conv2d):
     def forward(self, x):
         if self.mode == "calib":
             self._record(x)
+        if self.mode == "int8_w":
+            x, bias = self._cast(x, self.bias)
+            return self._conv_forward(x, self._weight_only((1, 2, 3)), bias)
         if self.mode != "int8":
             return super().forward(x)
         if self.groups != 1 or self.dilation != (1, 1) or \
@@ -132,16 +151,16 @@ class QuantConv(_QuantMixin, nn.Conv2d):
         a = _to_int8(cols.transpose(1, 2))  # (B, oh*ow, K)
         w8 = wq.to(torch.int8).reshape(N, -1)
         acc = _int8_matmul(a.view(B * oh * ow, -1), w8.t())
-        y = acc.float() * (s_in * s_w.view(-1))
+        y = (acc.float() * (s_in * s_w.view(-1))).to(self._out_dtype())
         # NCHW view of NHWC memory (channels_last): no transpose pass
         y = y.view(B, oh, ow, N).permute(0, 3, 1, 2)
         if self.bias is not None:
-            y = y + self.bias.view(1, -1, 1, 1)
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
         return y
 
 
-class QuantConvTranspose(_QuantMixin, nn.ConvTranspose2d):
-    """``nn.ConvTranspose2d(k4, s2, p1)`` with an int8 mode (the JAX
+class QuantConvTranspose(_QuantMixin, ConvTranspose2d):
+    """``ConvTranspose2d(k4, s2, p1)`` with int8 modes (the JAX
     ``QuantConvTranspose``)."""
 
     def __init__(self, *args, **kw):
@@ -151,6 +170,12 @@ class QuantConvTranspose(_QuantMixin, nn.ConvTranspose2d):
     def forward(self, x, output_size=None):
         if self.mode == "calib":
             self._record(x)
+        if self.mode == "int8_w":
+            x, bias = self._cast(x, self.bias)
+            return F.conv_transpose2d(
+                x, self._weight_only((0, 2, 3)), bias, self.stride,
+                self.padding, self.output_padding, self.groups,
+                self.dilation)
         if self.mode != "int8":
             return super().forward(x, output_size)
         if (self.kernel_size != (4, 4) or self.stride != (2, 2)
@@ -163,7 +188,8 @@ class QuantConvTranspose(_QuantMixin, nn.ConvTranspose2d):
         xq, s_in = _quantize_acts(x, self.act_scale)
         wq, s_w = _quantize_weights(self.weight, (0, 2, 3))
         x8 = _to_int8(xq.permute(0, 2, 3, 1))  # NHWC
-        return _int8_deconv(x8, wq.to(torch.int8), s_in * s_w.view(-1))
+        return _int8_deconv(x8, wq.to(torch.int8), s_in * s_w.view(-1),
+                            self._out_dtype())
 
 
 def quant_layers(model: nn.Module) -> Dict[str, nn.Module]:
@@ -198,7 +224,8 @@ def set_int8(model: nn.Module, scales: Dict[str, torch.Tensor]) -> nn.Module:
 def calibrate(model: nn.Module, batches: Iterable[torch.Tensor],
               percentile: float = 100.0) -> Dict[str, torch.Tensor]:
     """Run (B, S, S) normalized depth batches through ``model`` (eval
-    mode, float forward) and return each layer's activation scale: the
+    mode, float forward in the model's compute dtype) and return each
+    layer's activation scale: the
     running max over batches of the |x| amplitude / 127, the amplitude
     being the batch max or, with ``percentile`` < 100, that |x|
     percentile of the batch.  The model is left in mode "off", its

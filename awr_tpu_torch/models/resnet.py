@@ -10,7 +10,8 @@ stages at strides (1, 2, 2, 2) to /32, then ``4 - log2(downsample)`` x
 concatenated to 4J channels.  The encoder convs and the deconvs are
 :class:`~awr_tpu_torch.models.quant.QuantConv` /
 :class:`~awr_tpu_torch.models.quant.QuantConvTranspose` (float layers
-until a Predictor is quantized); the heads stay float.
+until a Predictor is quantized); the heads stay float.  Under a compute
+dtype every layer runs in it and the map leaves as float32.
 
 Submodule names give ``state_dict()`` the reference's key layout
 (``pre.0``, ``layer1.0.conv1``, ``layer2.0.downsample.0``,
@@ -27,7 +28,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from awr_tpu_torch.models.common import (batch_norm, he_fanout_normal_,
+from awr_tpu_torch.models.common import (ComputeDtype, Conv2d, batch_norm,
+                                         he_fanout_normal_, map_out,
                                          max_pool_torch, normal_001_,
                                          rematerialized)
 from awr_tpu_torch.models.quant import QuantConv, QuantConvTranspose
@@ -96,7 +98,7 @@ class Bottleneck(nn.Module):
         return torch.relu(out + residual)
 
 
-class ResNetDeconv(nn.Module):
+class ResNetDeconv(ComputeDtype, nn.Module):
     """(B, 1, H, W) depth -> (B, 4J, H/ds, W/ds) dense map."""
 
     def __init__(self, joint_num: int = 14, block: str = "basic",
@@ -126,8 +128,8 @@ class ResNetDeconv(nn.Module):
                        batch_norm(256), nn.ReLU()]
             in_ch = 256
         self.deconv_layers = nn.Sequential(*deconv)
-        self.final1 = nn.Conv2d(in_ch, joint_num * 3, 1)
-        self.final2 = nn.Conv2d(in_ch, joint_num, 1)
+        self.final1 = Conv2d(in_ch, joint_num * 3, 1)
+        self.final2 = Conv2d(in_ch, joint_num, 1)
         self.reset_parameters(generator)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -146,12 +148,14 @@ class ResNetDeconv(nn.Module):
                 m.bias.zero_()
 
     def forward(self, x):
+        (x,) = self._cast(x)
         x = self.pre(x)
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
             for block in stage:
                 x = rematerialized(block, x) if self.remat else block(x)
         x = self.deconv_layers(x)
-        return torch.cat([self.final1(x), self.final2(x)], dim=1)
+        return map_out(torch.cat([self.final1(x), self.final2(x)], dim=1),
+                       self.compute_dtype)
 
 
 def get_deconv_net(layers: int, joint_num: int, downsample: int,

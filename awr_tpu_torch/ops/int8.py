@@ -8,7 +8,7 @@ sum exactly and these functions give the int32 results bit for bit.
 
 Layouts are the port's: the deconv takes NHWC int8 activations (the
 order the quantizer writes them in) and the ``ConvTranspose2d`` weight
-layout (C_in, C_out, kh, kw), and returns NCHW float32.
+layout (C_in, C_out, kh, kw), and returns NCHW in ``out_dtype``.
 """
 
 from __future__ import annotations
@@ -48,16 +48,18 @@ def prep_deconv_weights(wq: torch.Tensor) -> torch.Tensor:
 
 
 def deconv4x4s2_int8(xq: torch.Tensor, wq: torch.Tensor,
-                     scale: torch.Tensor) -> torch.Tensor:
+                     scale: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``ConvTranspose2d(k4, s2, p1)`` on int8 codes, dequantized.
 
     Args:
       xq: (B, H, W, C_in) int8 activations, NHWC.
       wq: (C_in, C_out, 4, 4) int8 weight.
       scale: (C_out,) float32 combined dequant scale ``s_in * s_w[oc]``.
+      out_dtype: float32 or bfloat16 (the JAX kernel's ``out_dtype``).
     Returns:
-      (B, C_out, 2H, 2W) float32: the int32 sum cast to float32, times
-      ``scale[oc]``.
+      (B, C_out, 2H, 2W) ``out_dtype``: the int32 sum cast to float32,
+      times ``scale[oc]`` in float32, rounded once to ``out_dtype``.
     """
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise TypeError(f"deconv takes int8 codes, got {xq.dtype} and "
@@ -68,6 +70,8 @@ def deconv4x4s2_int8(xq: torch.Tensor, wq: torch.Tensor,
         raise ValueError(f"deconv takes (B, H, W, C_in), (C_in, C_out, 4, "
                          f"4) and (C_out,), got {tuple(xq.shape)}, "
                          f"{tuple(wq.shape)} and {tuple(scale.shape)}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"deconv writes float32 or bfloat16, not {out_dtype}")
     acc = F.conv_transpose2d(xq.permute(0, 3, 1, 2).double(), wq.double(),
                              stride=2, padding=1)
-    return acc.float() * scale.float().view(1, -1, 1, 1)
+    return (acc.float() * scale.float().view(1, -1, 1, 1)).to(out_dtype)

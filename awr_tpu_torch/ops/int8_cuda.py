@@ -19,9 +19,11 @@ import torch
 
 from awr_tpu_torch import kernels
 
-# Kernel launches made by each wrapper since its count was last reset.
+# Kernel launches made by each wrapper since its count was last reset
+# (the deconv's by output dtype: float32, bfloat16).
 GEMM_LAUNCHES = 0
 DECONV_LAUNCHES = 0
+DECONV_BF16_LAUNCHES = 0
 
 # The tensor-core kernels' fixed tile: 128 rows of A (two warpgroups of
 # 64) and 128 bytes of K a pipeline stage; the GEMM's tile width BN is 64
@@ -183,16 +185,22 @@ def int8_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def deconv4x4s2_int8_cuda(xq: torch.Tensor, wq: torch.Tensor,
-                          scale: torch.Tensor) -> torch.Tensor:
+                          scale: torch.Tensor,
+                          out_dtype: torch.dtype = torch.float32
+                          ) -> torch.Tensor:
     """``ConvTranspose2d(k4, s2, p1)`` on int8 codes, dequantized, on one
     CUDA device: (B, H, W, C_in) int8 NHWC (contiguous), (C_in, C_out, 4,
     4) int8 weight and (C_out,) float32 scale -> (B, C_out, 2H, 2W)
-    float32.  C_in must be a multiple of 16."""
-    global DECONV_LAUNCHES
+    ``out_dtype``, float32 or bfloat16 (the float32 product rounded once
+    in the kernel's epilogue).  C_in must be a multiple of 16."""
+    global DECONV_LAUNCHES, DECONV_BF16_LAUNCHES
     if xq.dtype != torch.int8 or wq.dtype != torch.int8 or \
             scale.dtype != torch.float32:
         raise TypeError(f"int8 deconv takes int8 codes and a float32 scale, "
                         f"got {xq.dtype}, {wq.dtype} and {scale.dtype}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"int8 deconv writes float32 or bfloat16, not "
+                        f"{out_dtype}")
     if (xq.dim() != 4 or wq.dim() != 4 or tuple(wq.shape[2:]) != (4, 4)
             or wq.shape[0] != xq.shape[3]
             or tuple(scale.shape) != (wq.shape[1],) or xq.numel() == 0):
@@ -214,15 +222,19 @@ def deconv4x4s2_int8_cuda(xq: torch.Tensor, wq: torch.Tensor,
     wph = torch.empty((4, c_out, 4 * c_in), dtype=torch.int8,
                       device=xq.device)
     plan = deconv_plan(B, H, W, c_in, c_out)
-    out = torch.empty((B, c_out, 2 * H, 2 * W), dtype=torch.float32,
+    out = torch.empty((B, c_out, 2 * H, 2 * W), dtype=out_dtype,
                       device=xq.device)
+    bf16 = out_dtype == torch.bfloat16
     with torch.cuda.device(xq.device):
-        err = _launcher("awr_s8_deconv", 5, 8)(
+        err = _launcher("awr_s8_deconv", 5, 9)(
             xq.data_ptr(), wq.data_ptr(), wph.data_ptr(), scale.data_ptr(),
             out.data_ptr(),
-            B, H, W, c_in, c_out, plan.tw, plan.th, plan.tb,
+            B, H, W, c_in, c_out, plan.tw, plan.th, plan.tb, int(bf16),
             torch.cuda.current_stream(xq.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8 deconv launch failed: CUDA error {err}")
-    DECONV_LAUNCHES += 1
+    if bf16:
+        DECONV_BF16_LAUNCHES += 1
+    else:
+        DECONV_LAUNCHES += 1
     return out

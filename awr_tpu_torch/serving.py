@@ -6,7 +6,9 @@ the host, crop and normalize on the device, the backbone forward, the
 AWR decode (the hand-written CUDA kernel on a GPU), and the
 de-normalization back to (u px, v px, d mm) in the original camera
 frame, the reference's results/*.txt convention.  :meth:`Predictor.quantize`
-switches a ResNet-deconv Predictor to int8 inference.
+switches a ResNet-deconv Predictor to int8 inference.  The backbone runs
+in ``config.compute_dtype`` (float32 or bfloat16; the weights stay
+float32), the decode on its float32 map.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from awr_tpu_torch.config import Config, resolve_device
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
+from awr_tpu_torch.models.common import set_compute_dtype
 from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
 from awr_tpu_torch.training.steps import make_infer_step
@@ -30,17 +33,20 @@ class Predictor:
     def __init__(self, config: Config, model_or_state, paras=None,
                  flip: Optional[int] = None, device=None):
         """``model_or_state``: the backbone as an ``nn.Module`` (moved to
-        ``device``), or a state dict in the reference's key layout.
-        ``device``: CUDA unless named; without a GPU, name "cpu"."""
+        ``device`` and set to ``config.compute_dtype``), or a state dict in
+        the reference's key layout.  ``device``: CUDA unless named;
+        without a GPU, name "cpu"."""
         self.cfg = config
         self.device = resolve_device(device)
         self.paras = paras if paras is not None else config.paras
         self.flip = flip if flip is not None else config.flip
+        dtype = config.torch_compute_dtype
         if isinstance(model_or_state, nn.Module):
-            model = model_or_state
+            model = set_compute_dtype(model_or_state, dtype)
         else:
             model = load_reference_state_dict(
-                build_model(config.net, config.jt_num, config.downsample),
+                build_model(config.net, config.jt_num, config.downsample,
+                            compute_dtype=dtype),
                 model_or_state)
         self.model = model.to(self.device).eval()
         self._infer = make_infer_step(self.model, config)
@@ -77,10 +83,12 @@ class Predictor:
         ``calib_imgs_normalized``: (N, S, S) normalized depth frames (the
         input of :meth:`predict_normalized`) that calibrate each layer's
         activation scale, in batches of 32 (the percentile is taken per
-        batch, then maxed over batches, as the JAX package does).  The
-        weights are reused unchanged.  ``percentile``: the calibration
-        statistic; the default p99.99 clips activation outliers (the JAX
-        package measured it better than the max on trained nets)."""
+        batch, then maxed over batches, as the JAX package does), through
+        the float forward in the compute dtype; the int8 forward then
+        serves in it too.  The weights are reused unchanged.
+        ``percentile``: the calibration statistic; the default p99.99
+        clips activation outliers (the JAX package measured it better
+        than the max on trained nets)."""
         if not self.cfg.net.startswith("resnet"):
             raise NotImplementedError(
                 f"int8 {self.cfg.net}: the port quantizes the ResNet-deconv "

@@ -8,8 +8,11 @@ One forward per step: the stacked (S, B, 4J, F, F) output (a single
 ``supervise_all_stacks`` (the default) every stack contributes to the
 training loss; without it only the last does, which is the gradient the
 reference's per-stack recompute loop backpropagates.
-On CUDA tensors the encode, the decode and the decode's backward are the
-hand-written kernels.  No step calls ``.item()`` or otherwise waits on
+The backbone runs in the compute dtype it was built with
+(``build_model(compute_dtype=)``) and returns a float32 map under
+bfloat16, so the encode, the decode, the decode's backward and the loss
+run in float32.  On CUDA tensors the encode, the decode and the decode's
+backward are the hand-written kernels.  No step calls ``.item()`` or otherwise waits on
 the device: metrics come back as device tensors.
 """
 
@@ -33,7 +36,8 @@ def _stacked(out: torch.Tensor) -> torch.Tensor:
 
 def _forward(model, img):
     """(B, S, S) depth -> (S, B, 4J, F, F), the input cast to the
-    model's parameter dtype."""
+    model's parameter dtype (float64 in the parity oracles); the model
+    casts it on to its compute dtype."""
     dtype = next(model.parameters()).dtype
     return _stacked(model(img[:, None].to(dtype)))
 

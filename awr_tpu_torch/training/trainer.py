@@ -24,7 +24,9 @@ package's too:
   ``(seed, epoch, step)``, so a resumed run draws what a straight run
   draws.
 - float32 without TF32 (the JAX package's ``matmul_precision`` default,
-  "highest").
+  "highest"), or with ``compute_dtype`` "bfloat16" the backbone in bf16
+  (parameters, Adam state and checkpoints float32; the encode, the
+  decode and the loss on float32 maps).
 
 One GPU, no mesh: a partial last batch pads to a multiple of
 ``grad_accum`` with a validity weight ``w`` that masks the padding rows
@@ -90,8 +92,11 @@ class Trainer:
 
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+        # float32 parameters, Adam state and checkpoints; the forward and
+        # backward in the compute dtype
         self.model = build_model(config.net, config.jt_num,
-                                 config.downsample, remat=config.remat)
+                                 config.downsample, remat=config.remat,
+                                 compute_dtype=config.torch_compute_dtype)
         self.model.reset_parameters(torch.Generator().manual_seed(
             config.seed))
         self.model.to(self.device)

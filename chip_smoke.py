@@ -10,7 +10,7 @@ PyTorch version on the card (the decode's softmax statistics too, the
 decode backward from the statistics the forward saved; the int8 GEMM
 also against ``torch._int_mm``).  Then, with ``hourglass_1`` at full
 width (img 128, 256 channels, 14 joints; seeded random weights),
-float32, TF32 off:
+float32, TF32 off (then bf16, phase ``bf16``):
 
 - train: K raw-mode Adam steps (device crop, augmentation drawn by a
   seeded ``torch.Generator`` on the card, encode, forward, decode, loss,
@@ -52,7 +52,17 @@ float32, TF32 off:
   train frames/s and the next epoch's idle share; the evaluation CLI on
   each run's last checkpoint in both modes (host and raw test MPE within
   HOST_RAW_MPE_ATOL); and one evaluation-CLI call on each of the ICVL
-  (J = 16), MSRA and HANDS17 (J = 21) directories.
+  (J = 16), MSRA and HANDS17 (J = 21) directories;
+- bf16: ``compute_dtype="bfloat16"`` at the same widths: hourglass_1
+  and resnet_18 requests, and resnet_18 int8 requests under bf16 (20
+  int8 GEMMs and 3 int8 deconvs with the bf16 epilogue each), with exact
+  launch counts, each path's joints against the float32 joints of the
+  same seeded weights (BF16_DRIFT_MAX), request and device times at
+  B = 1, 32 and 256; the raw train step of each family at B = 32 (exact
+  launch counts, device time beside the float32 step's); the training
+  CLI in bf16 (``--synthetic --data-mode raw``, 3 epochs: frames/s of
+  the second, idle share of the third); then profiles of both families'
+  bf16 train steps and of resnet_18's float32 one.
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -77,7 +87,7 @@ import torch
 import torch.nn.functional as F
 
 from awr_tpu_torch import kernels
-from awr_tpu_torch.config import (DATASET_PARAS, hourglass_config,
+from awr_tpu_torch.config import (DATASET_PARAS, DTYPES, hourglass_config,
                                   resnet_config)
 from awr_tpu_torch.data import native_decode
 from awr_tpu_torch.data.device import (crop_normalize_batch,
@@ -126,6 +136,12 @@ KERNELS = [
     dict(name="deconv_int8", route="cuda", module=int8_cuda,
          counter="DECONV_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
          replaces="awr_tpu/ops/pallas_int8.py:89", path="serve_resnet_int8"),
+    # the same kernel with its bfloat16 epilogue (the Pallas kernel's
+    # out_dtype), on the int8 requests under bf16 compute
+    dict(name="deconv_int8_bf16", route="cuda", module=int8_cuda,
+         counter="DECONV_BF16_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
+         replaces="awr_tpu/ops/pallas_int8.py:89",
+         path="bf16_serve_resnet_18_int8"),
 ]
 SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
 # host C++ built beside the kernels: the PNG unfilter of the datasets
@@ -154,6 +170,13 @@ INT8_CPU_ATOL = 1e-3
 # (tests/test_serving.py:183)
 INT8_DRIFT_MAX = 0.05
 SERVE_BATCHES = (1, 8, 32)
+# the bf16 phase: request batches timed, train steps counted, Trainer
+# epochs (the second timed, the third profiled); bf16 joints against
+# float32 ones of the same weights, normalized uvd: the int8 drift bar
+BF16_BATCHES = (1, 32, 256)
+BF16_TRAIN_STEPS = 5
+BF16_TRAINER_EPOCHS = 3
+BF16_DRIFT_MAX = INT8_DRIFT_MAX
 # train step on the card against the CPU: cuDNN's backward algorithms sum
 # in other orders in float32
 CROSS_LOSS_RTOL = 1e-4
@@ -403,20 +426,25 @@ def phase_kernels():
         if not plain or lib is False or not torch.equal(got, again):
             raise AssertionError(f"int8 GEMM disagrees at {(M, K, N)}")
     errs["int8_gemm"] = 0.0
-    for B, H, c_in, c_out in DECONV_CHECKS:
-        xq, wq, scale = deconv_args(B, H, c_in, c_out)
-        got = int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale)
-        torch.cuda.synchronize()
-        want = int8.deconv4x4s2_int8(xq, wq, scale)
-        equal = torch.equal(got, want)
-        emit({"phase": "kernels", "kernel": "deconv_int8",
-              "shape": [B, H, H, c_in, c_out],
-              "plan": int8_cuda.deconv_plan(B, H, H, c_in, c_out)._asdict(),
-              "equal_plain": equal,
-              "max_abs_err": float((got - want).abs().max())})
-        if not equal:
-            raise AssertionError(f"int8 deconv disagrees at {(B, H, c_in)}")
-    errs["deconv_int8"] = 0.0
+    for name, dtype in (("deconv_int8", torch.float32),
+                        ("deconv_int8_bf16", torch.bfloat16)):
+        err = 0.0
+        for B, H, W, c_in, c_out in DECONV_CHECKS + DECONV_EDGE_CHECKS:
+            xq, wq, scale = deconv_args(B, H, c_in, c_out, W=W)
+            got = int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale, dtype)
+            torch.cuda.synchronize()
+            want = int8.deconv4x4s2_int8(xq, wq, scale, dtype)
+            equal = torch.equal(got, want) and got.dtype == dtype
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            emit({"phase": "kernels", "kernel": name,
+                  "shape": [B, H, W, c_in, c_out],
+                  "plan": int8_cuda.deconv_plan(B, H, W, c_in,
+                                                c_out)._asdict(),
+                  "equal_plain": equal, "max_abs_err": err})
+            if not equal:
+                raise AssertionError(f"{name} disagrees at "
+                                     f"{(B, H, W, c_in, c_out)}")
+        errs[name] = err
     return errs
 
 
@@ -426,10 +454,13 @@ def phase_kernels():
 # layer3's 3x3 convs, and layer4's at bucket 8 (split K)
 GEMM_CHECKS = [(32768, 1024, 256), (131072, 576, 64), (524288, 25, 64),
                (2048, 4608, 512), (512, 4608, 512), (8192, 2304, 256)]
-# (B, H, C_in, C_out) of resnet_18's three decoder deconvs at B = 32, and
-# deconv0 at bucket 8
-DECONV_CHECKS = [(32, 8, 512, 256), (32, 16, 256, 256), (32, 32, 256, 256),
-                 (8, 8, 512, 256)]
+# (B, H, W, C_in, C_out) of resnet_18's three decoder deconvs at B = 32,
+# and deconv0 at bucket 8
+DECONV_CHECKS = [(32, 8, 8, 512, 256), (32, 16, 16, 256, 256),
+                 (32, 32, 32, 256, 256), (8, 8, 8, 512, 256)]
+# widths whose output rows no TMA store takes: odd W (both dtypes), and
+# W % 4 == 2 (bfloat16), stored by the threads from shared memory
+DECONV_EDGE_CHECKS = [(3, 5, 7, 16, 24), (2, 6, 10, 32, 200)]
 
 
 def int8_codes(shape, seed):
@@ -438,12 +469,12 @@ def int8_codes(shape, seed):
                          dtype=torch.int8)
 
 
-def deconv_args(B, H, c_in, c_out, seed=SEED):
-    """Seeded int8 NHWC codes, an int8 (C_in, C_out, 4, 4) weight and
-    scales in [0.5, 2]."""
+def deconv_args(B, H, c_in, c_out, seed=SEED, W=None):
+    """Seeded int8 NHWC codes (W = H unless given), an int8 (C_in, C_out,
+    4, 4) weight and scales in [0.5, 2]."""
     scale = torch.empty(c_out, device="cuda").uniform_(
         0.5, 2.0, generator=torch.Generator("cuda").manual_seed(seed))
-    return (int8_codes((B, H, H, c_in), seed + 1),
+    return (int8_codes((B, H, W or H, c_in), seed + 1),
             int8_codes((c_in, c_out, 4, 4), seed + 2), scale)
 
 
@@ -854,7 +885,7 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
                                bw, int8_ops)
         out[f"int8_gemm_request_b{B}"] = gemm[B]
     deconvs = {}
-    for B, H, c_in, c_out in DECONV_CHECKS[:3]:
+    for B, H, _, c_in, c_out in DECONV_CHECKS[:3]:
         deconvs[f"deconv_{H}x{H}_{c_in}_{c_out}"] = deconv_times(
             B, H, c_in, c_out, bw, int8_ops)
     out["deconv_int8_request_b32"] = dict(
@@ -863,8 +894,18 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
                      "ops")}, deconvs=deconvs)
     # deconv2 alone, the row kept comparable with earlier runs
     dec = out["deconv_int8_b32"] = deconvs["deconv_32x32_256_256"]
+    # the bf16 epilogue at the same shapes
+    bf16 = {f"deconv_{H}x{H}_{c_in}_{c_out}": deconv_times(
+        B, H, c_in, c_out, bw, int8_ops, torch.bfloat16)
+        for B, H, _, c_in, c_out in DECONV_CHECKS[:3]}
+    out["deconv_int8_bf16_request_b32"] = dict(
+        {key: sum(r[key] for r in bf16.values())
+         for key in ("ms", "plain_ms", "bound_ms", "library_ms", "bytes",
+                     "ops")}, deconvs=bf16)
+    dec16 = out["deconv_int8_bf16_b32"] = bf16["deconv_32x32_256_256"]
     emit(out)
-    return {"int8_gemm": gemm[32], "deconv_int8": dec}
+    return {"int8_gemm": gemm[32], "deconv_int8": dec,
+            "deconv_int8_bf16": dec16}
 
 
 def gemm_request(pred_q, img, bw, int8_ops):
@@ -904,19 +945,26 @@ def gemm_request(pred_q, img, bw, int8_ops):
     return gemm
 
 
-def deconv_times(B, H, c_in, c_out, bw, int8_ops):
-    """The int8 deconv at one decoder shape; its library call is cuDNN's
-    float32 conv_transpose2d (TF32 off) on the int8 values, times the
-    scale: exact where cuDNN sums directly and every partial sum is an
-    integer below 2**24 (C_in = 256: 4 * 256 * 127**2 < 2**24; deconv0's
-    C_in = 512 can pass it), so its error is recorded."""
+def deconv_times(B, H, c_in, c_out, bw, int8_ops, out_dtype=torch.float32):
+    """The int8 deconv at one decoder shape, writing ``out_dtype``; its
+    library call is cuDNN's float32 conv_transpose2d (TF32 off) on the
+    int8 values, times the scale (then rounded to ``out_dtype``): exact
+    where cuDNN sums directly and every partial sum is an integer below
+    2**24 (C_in = 256: 4 * 256 * 127**2 < 2**24; deconv0's C_in = 512 can
+    pass it), so its error is recorded."""
     def dec_args():
         return deconv_args(B, H, c_in, c_out)
+
+    def kernel(xq, wq, scale):
+        return int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale, out_dtype)
+
+    def plain(xq, wq, scale):
+        return int8.deconv4x4s2_int8(xq, wq, scale, out_dtype)
+    out_bytes = torch.empty((), dtype=out_dtype).element_size()
     nbytes = B * H * H * c_in + 16 * c_in * c_out + 4 * c_out \
-        + 4 * B * c_out * 4 * H * H
-    dec = kernel_times(int8_cuda.deconv4x4s2_int8_cuda, int8.deconv4x4s2_int8,
-                       dec_args, nbytes, 2 * 16 * B * H * H * c_in * c_out,
-                       bw, int8_ops)
+        + out_bytes * B * c_out * 4 * H * H
+    dec = kernel_times(kernel, plain, dec_args, nbytes,
+                       2 * 16 * B * H * H * c_in * c_out, bw, int8_ops)
 
     def lib_args():
         xq, wq, scale = dec_args()
@@ -924,11 +972,10 @@ def deconv_times(B, H, c_in, c_out, bw, int8_ops):
                 scale.view(1, -1, 1, 1))
 
     def lib(x, w, scale):
-        return F.conv_transpose2d(x, w, stride=2, padding=1) * scale
-    xq, wq, scale = dec_args()
+        return (F.conv_transpose2d(x, w, stride=2, padding=1)
+                * scale).to(out_dtype)
     dec["library_max_abs_err"] = float(
-        (lib(*lib_args()) - int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale))
-        .abs().max())
+        (lib(*lib_args()).float() - kernel(*dec_args()).float()).abs().max())
     dec["library_ms"] = device_ms(lib, [lib_args() for _ in range(2)], 20)
     dec["shape"] = [B, H, H, c_in, c_out]
     dec["plan"] = int8_cuda.deconv_plan(B, H, H, c_in, c_out)._asdict()
@@ -1559,6 +1606,156 @@ def phase_datasets():
     return launches
 
 
+def bf16_serving(cfg, sd, frames, centers, quantize=False):
+    """A bf16 Predictor (int8 with ``quantize``) of the float32 state
+    ``sd`` against a float32 one: requests at SERVE_BATCHES with exact
+    launch counts, the joints' drift from float32 on the crops of the
+    frames, and request and device times at BF16_BATCHES."""
+    name = f"bf16_serve_{cfg.net}" + ("_int8" if quantize else "")
+    fp32 = Predictor(cfg, sd, device="cuda")
+    pred = Predictor(cfg.replace(compute_dtype="bfloat16"), sd, device="cuda")
+    crops = normalized_crops(cfg, frames, centers)
+    want = {"decode": 1}
+    if quantize:
+        pred.quantize(crops)
+        want.update(int8_gemm=20, deconv_int8_bf16=3)
+    reset_counts()
+    outs = {B: pred.predict(frames[:B], centers[:B]) for B in SERVE_BATCHES}
+    torch.cuda.synchronize()
+    launches = counts()
+    check_launches(name, launches,
+                   {k: n * len(outs) for k, n in want.items()})
+    for B, o in outs.items():
+        if o.shape != (B, cfg.jt_num, 3) or not np.isfinite(o).all():
+            raise AssertionError(f"{name} batch {B}: bad output")
+    got, ref = pred.predict_normalized(crops), fp32.predict_normalized(crops)
+    out = {"launches": launches,
+           "drift_vs_fp32_max": float(np.abs(got - ref).max()),
+           "drift_vs_fp32_mean": float(np.abs(got - ref).mean()),
+           "drift_bar": BF16_DRIFT_MAX}
+    for B in BF16_BATCHES:
+        f = np.resize(frames, (B,) + frames.shape[1:])
+        c = np.resize(centers, (B, 3))
+        ms = host_ms(lambda: pred.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
+        # the device path at the bucket ``predict`` pads the batch to
+        bucket = pred._bucket(B)
+        img = torch.from_numpy(np.resize(crops, (bucket,) + crops.shape[1:]))
+        out[f"b{B}"] = {"predict_ms": ms, "predict_fps": B / ms * 1e3,
+                        "device_batch": bucket,
+                        "device_ms": device_ms(pred._infer, [(img.cuda(),)],
+                                               10),
+                        "fp32_device_ms": device_ms(fp32._infer,
+                                                    [(img.cuda(),)], 10)}
+    if not out["drift_vs_fp32_max"] < BF16_DRIFT_MAX:
+        raise AssertionError(f"{name}: joints drift {out} from float32")
+    return name, out
+
+
+def bf16_train_step(cfg, frames, joints, centers):
+    """K raw bf16 train steps at B = 32 with exact launch counts, then the
+    step's device time, beside the float32 step's from the same weights.
+    Returns the record and each dtype's step with its arguments."""
+    raw, p = raw_inputs(cfg, frames, joints, centers, "cuda")
+    B = len(frames)
+    aug = draw_augment_params(torch.Generator("cuda").manual_seed(SEED + 6),
+                              B, *cfg.augment_para)
+    out, steps = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        model = build_model(cfg.net, cfg.jt_num, cfg.downsample,
+                            compute_dtype=DTYPES[dtype])
+        torch_default_init_(model, torch.Generator().manual_seed(SEED))
+        model.cuda()
+        step = make_raw_train_step(
+            model, make_optimizer(model.parameters(), cfg.optimizer, cfg.lr),
+            cfg, cfg.paras, cfg.flip)
+        if dtype == "bfloat16":
+            gen = torch.Generator("cuda").manual_seed(SEED)
+            reset_counts()
+            losses = [float(step(raw, p, draw_augment_params(
+                gen, B, *cfg.augment_para))["loss"])
+                for _ in range(BF16_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            out["launches"] = counts()
+            check_launches(f"bf16_train_{cfg.net}", out["launches"], {
+                k: BF16_TRAIN_STEPS for k in ("encode", "decode",
+                                              "decode_backward")})
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"bf16 {cfg.net} loss: {losses}")
+            out.update(loss_first=losses[0], loss_last=losses[-1])
+        steps[dtype] = (step, (raw, p, aug))
+        ms = device_ms(step, [(raw, p, aug)], 10)
+        out[f"{dtype}_step_ms_b{B}"] = ms
+        out[f"{dtype}_train_fps_b{B}"] = B / ms * 1e3
+    return out, steps
+
+
+def bf16_trainer():
+    """The train CLI in bf16 (hourglass_1, ``--synthetic --data-mode
+    raw``, B = 32) for BF16_TRAINER_EPOCHS epochs: exact launch counts,
+    the second epoch's train frames/s, the third's idle share."""
+    steps = -(-TRAINER_FRAMES // TRAIN_BATCH)
+    evals = -(-TRAINER_TEST_FRAMES // TRAIN_BATCH)
+    epochs = BF16_TRAINER_EPOCHS
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--net", "hourglass_1", "--synthetic", "--data-mode", "raw",
+                "--synthetic-size", str(TRAINER_FRAMES),
+                "--synthetic-test-size", str(TRAINER_TEST_FRAMES),
+                "--batch-size", str(TRAIN_BATCH), "--output-dir", root,
+                "--compute-dtype", "bfloat16", "--epochs", str(epochs),
+                "--device", "cuda"]
+        with trainer_marks(profile_epoch=epochs) as marks:
+            reset_counts()
+            tr = train_cli.main(argv)
+            torch.cuda.synchronize()
+            got = counts()
+    check_launches("bf16_trainer", got, {
+        "encode": epochs * (steps + evals), "decode": epochs * (steps + evals),
+        "decode_backward": epochs * steps})
+    if tr.model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the bf16 Trainer's model is not bf16")
+    t_train = {e: marks["test_start"][e] - marks["save_end"][e - 1]
+               for e in (epochs - 1, epochs)}
+    busy = busy_ms(marks["profile"])
+    return {"launches": got, "train_frames": TRAINER_FRAMES,
+            "warm_epoch_train_s": t_train[epochs - 1],
+            "train_fps": TRAINER_FRAMES / t_train[epochs - 1],
+            "profiled_epoch_train_s": t_train[epochs],
+            "profiled_epoch_busy_ms": busy,
+            "idle_share": 1.0 - busy / (t_train[epochs] * 1e3),
+            "device_gaps": device_gaps(marks["profile"]),
+            "test_mpe": marks["tests"][-1][1]}
+
+
+def phase_bf16(frames, joints, centers):
+    """bfloat16 compute at full width: hourglass_1 and resnet_18 serving,
+    resnet_18 int8 serving under bf16 (the bf16 deconv epilogue), the raw
+    train step of each, and the bf16 Trainer; each path's joints against
+    float32 ones of the same seeded weights, randomized BatchNorm.
+    Returns each path's launch counts and the train steps, by net and
+    dtype, with their arguments."""
+    out = {"phase": "bf16", "batches": list(BF16_BATCHES)}
+    launches = {}
+    for cfg in (hourglass_config(), resnet_config()):
+        model = build_model(cfg.net, cfg.jt_num, cfg.downsample)
+        torch_default_init_(model, torch.Generator().manual_seed(SEED))
+        sd = randomize_batch_norm_(model).state_dict()
+        paths = [False] + ([True] if cfg.net.startswith("resnet") else [])
+        for quantize in paths:
+            name, res = bf16_serving(cfg, sd, frames, centers, quantize)
+            launches[name] = res["launches"]
+            out[name] = res
+    steps = {}
+    for cfg in (hourglass_config(coord_weight=0.1),
+                resnet_config(coord_weight=0.1)):
+        res, steps[cfg.net] = bf16_train_step(cfg, frames, joints, centers)
+        launches[f"bf16_train_{cfg.net}"] = res["launches"]
+        out[f"train_{cfg.net}"] = res
+    out["trainer"] = bf16_trainer()
+    launches["bf16_trainer"] = out["trainer"]["launches"]
+    emit(out)
+    return launches, steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1597,6 +1794,13 @@ def main() -> int:
                                         lambda: train(raw, p, aug))
     launches["train_resnet"] = phase_train_resnet(frames, joints, centers)
     launches.update(phase_datasets())
+    bf16_launches, steps = phase_bf16(frames, joints, centers)
+    launches.update(bf16_launches)
+    # where a step's time goes in bf16 (and resnet_18's in float32, which
+    # bf16 did not shorten)
+    for net, dtype in (("hourglass_1", "bfloat16"), ("resnet_18", "bfloat16"),
+                       ("resnet_18", "float32")):
+        phase_profile(f"train {net} {dtype}, B = 32", *steps[net][dtype])
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

@@ -90,12 +90,20 @@ def test_torch_default_init_is_seeded():
 
 
 def test_unported_options_raise():
+    """The int8 hourglass still raises.  bfloat16 is served now
+    (tests/test_torch_bf16*.py hold it against the JAX package): a bf16
+    Predictor runs; an unknown compute dtype raises."""
     cfg = hourglass_config(img_size=IMG)
     pred = Predictor(cfg, build_model(cfg.net, cfg.jt_num), device="cpu")
     with pytest.raises(NotImplementedError, match="int8 hourglass"):
         pred.quantize(np.zeros((2, IMG, IMG), np.float32))
-    with pytest.raises(NotImplementedError, match="float32"):
-        Config(compute_dtype="bfloat16")
+    bf16 = Predictor(cfg.replace(compute_dtype="bfloat16"),
+                     pred.model.state_dict(), device="cpu")
+    img = np.random.RandomState(0).uniform(-1, 1, (2, IMG, IMG)).astype(
+        np.float32)
+    assert np.isfinite(bf16.predict_normalized(img)).all()
+    with pytest.raises(ValueError, match="float16"):
+        Config(compute_dtype="float16")
     cfg = hourglass_config(2)
     assert (cfg.net, cfg.nstack, cfg.kernel_size, cfg.feature_size) == \
         ("hourglass_2", 2, 0.4, 64)

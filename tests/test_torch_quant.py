@@ -201,14 +201,15 @@ def test_int8_conv_wiring(monkeypatch, k, stride, cin, cout):
 
 
 def test_int8_deconv_wiring(monkeypatch):
-    """The deconv gets contiguous NHWC int8 codes, the int8 weight and
-    ``s_in * s_w``; the result is a float64 conv_transpose of the codes."""
+    """The deconv gets contiguous NHWC int8 codes, the int8 weight,
+    ``s_in * s_w`` and the output dtype (float32 without a compute
+    dtype); the result is a float64 conv_transpose of the codes."""
     calls = []
 
-    def deconv(xq, wq, scale):
+    def deconv(xq, wq, scale, out_dtype):
         calls.append((xq.dtype, xq.is_contiguous(), tuple(xq.shape),
-                      wq.dtype))
-        return int8.deconv4x4s2_int8(xq, wq, scale)
+                      wq.dtype, out_dtype))
+        return int8.deconv4x4s2_int8(xq, wq, scale, out_dtype)
 
     monkeypatch.setattr(quant, "_int8_deconv", deconv)
     rng = np.random.RandomState(1)
@@ -224,7 +225,8 @@ def test_int8_deconv_wiring(monkeypatch):
     want = (F.conv_transpose2d(xq.double(), wq.double(), stride=2, padding=1)
             .float() * (s_in * s_w.view(1, -1, 1, 1)))
     assert torch.equal(got, want)
-    assert calls == [(torch.int8, True, (2, 5, 6, 16), torch.int8)]
+    assert calls == [(torch.int8, True, (2, 5, 6, 16), torch.int8,
+                      torch.float32)]
 
 
 @pytest.mark.parametrize("n", [1, 2, 10001, 99991])
