@@ -1,6 +1,8 @@
 """Sustained-convergence check through the port's Trainer: >= 10x
 held-out MPE improvement (the JAX package's
-``benchmarks/convergence_run.py``, without its int8 and QAT options).
+``benchmarks/convergence_run.py``), and with ``--int8-eval`` the
+accuracy of int8 serving on the trained weights, after PTQ and after a
+QAT fine-tune.
 
 Trains the raw-mode path (device crop and augmentation -> CUDA encode ->
 backbone -> CUDA decode -> delta = 0.01 smooth-L1 -> Adam) on the fully
@@ -17,6 +19,10 @@ Usage:
   python -m awr_tpu_torch.benchmarks.convergence_run --net hourglass_1 \\
       --epochs 200 --coord-weight 0.1 --compute-dtype bfloat16 \\
       --out runs/torch_convergence_hourglass_bf16_h100.json
+  # then int8: PTQ, and QAT with the gentle recipe (100 steps at 1e-5)
+  python -m awr_tpu_torch.benchmarks.convergence_run --net resnet_18 \\
+      --epochs 125 --compute-dtype bfloat16 --int8-eval --qat-auto \\
+      --out runs/torch_convergence_qat_resnet18_h100.json
 
 The reference recipe analog: batch 32, Adam lr 1e-3 (reference
 config.py:36-46); StepLR decay pushed late (step=100), since this run is
@@ -24,6 +30,16 @@ about optimization depth, not the NYU schedule.  Under
 ``awr_tpu_torch.training.supervise`` with ``--step-timeout``, a restarted
 run resumes from the workdir's checkpoints and keeps the first run's
 baseline.
+
+``--int8-eval`` calibrates int8 scales (p99.99) on 4 host-mode batches of
+the train set, then reports the held-out MPE of the final weights in
+float and in int8; ``--qat-auto`` then fine-tunes them for the
+``training.qat.gap_scaled_recipe`` budget (100 steps at 1e-5) with the
+same frozen scales on the train set's batches and reports the int8 MPE
+again, with the fine-tune's first and last loss.  The keys are the JAX
+package's (``runs/convergence_qat_*.json``).  The JAX script's
+``--qat-steps``/``--qat-lr`` are left out: its runs and the port's use
+the recipe, whose budget does not depend on the PTQ gap.
 """
 
 from __future__ import annotations
@@ -34,8 +50,12 @@ import os
 import subprocess
 import time
 
+import torch
+
 from awr_tpu_torch.config import Config
 from awr_tpu_torch.data.synthetic import SyntheticHandDataset
+from awr_tpu_torch.models.quant import calibrate, set_int8
+from awr_tpu_torch.training import qat
 from awr_tpu_torch.training.trainer import Trainer
 
 
@@ -48,6 +68,37 @@ def device_label(device: str) -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.splitlines()[0]
+
+
+def int8_eval(tr, cfg, args) -> dict:
+    """Held-out MPE of the Trainer's final weights in float and in int8
+    (PTQ), then, with ``args.qat_auto``, after the recipe's QAT; leaves
+    the Trainer's model in int8 with the fine-tuned weights if QAT ran."""
+    host = SyntheticHandDataset(args.train_size, cfg.jt_num, 128,
+                                phase="train", seed=0, layout="grid",
+                                mode="host")
+    fp_mpe, _ = tr.test(epoch=-3)
+    calib = [torch.from_numpy(b["img"]).to(tr.device)
+             for b in qat.batches_from_dataset(host, 32, 4)]
+    # p99.99: the serving default (Predictor.quantize)
+    quant = calibrate(tr.model, calib, percentile=99.99)
+    set_int8(tr.model, quant)
+    int8_mpe, _ = tr.test(epoch=-2)
+    out = dict(final_state_fp_mpe_mm=float(fp_mpe),
+               final_state_int8_mpe_mm=float(int8_mpe),
+               int8_mpe_delta_mm=float(int8_mpe - fp_mpe))
+    if args.qat_auto:
+        steps, lr = qat.gap_scaled_recipe()
+        batches = qat.batches_from_dataset(host, 32, args.train_size // 32)
+        tuned, _, losses = qat.finetune(cfg, tr.model, batches, steps=steps,
+                                        lr=lr, quant=quant)
+        tr.model.load_state_dict(tuned.state_dict())
+        qat_mpe, _ = tr.test(epoch=-4)
+        out.update(qat_recipe="gap_scaled", qat_steps=steps, qat_lr=lr,
+                   qat_int8_mpe_mm=float(qat_mpe),
+                   qat_mpe_delta_mm=float(qat_mpe - fp_mpe),
+                   qat_loss_first=losses[0], qat_loss_last=losses[-1])
+    return out
 
 
 def main(argv=None):
@@ -72,6 +123,14 @@ def main(argv=None):
     ap.add_argument("--compute-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--int8-eval", action="store_true",
+                    help="after training, calibrate int8 on train batches "
+                         "and report the int8 held-out MPE beside the "
+                         "float one")
+    ap.add_argument("--qat-auto", action="store_true",
+                    help="with --int8-eval: then QAT fine-tune for the "
+                         "training.qat.gap_scaled_recipe budget (frozen "
+                         "scales) and report the int8 MPE again")
     args = ap.parse_args(argv)
 
     ks = 1.0 if args.net.startswith("resnet") else 0.4
@@ -111,6 +170,7 @@ def main(argv=None):
     tr.train()
     final_mpe = tr.best_records["MPE"]
     wall = time.time() - t0
+    int8_metrics = int8_eval(tr, cfg, args) if args.int8_eval else {}
     tr.close()
 
     improvement = init_mpe / final_mpe
@@ -123,7 +183,8 @@ def main(argv=None):
                   improvement_x=float(improvement),
                   best_epoch=tr.best_records["best_epoch"],
                   resumed_from_epoch=resumed_from,
-                  wall_s=wall, device=device_label(args.device))
+                  wall_s=wall, device=device_label(args.device),
+                  **int8_metrics)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(result, fh, indent=1)

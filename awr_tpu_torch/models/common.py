@@ -69,8 +69,11 @@ def set_compute_dtype(model: nn.Module, dtype) -> nn.Module:
 def map_out(x: torch.Tensor, dtype) -> torch.Tensor:
     """A backbone's dense map as it leaves the model: float32 under a
     compute dtype (the JAX package's ``pred.astype(jnp.float32)``), so
-    the decode and the loss take float32; else as computed."""
-    return x if dtype is None else x.float()
+    the decode and the loss take float32; else as computed.  Contiguous
+    either way: an int8 conv returns an NCHW view of channels-last
+    memory, the heads after it keep that layout, and the CUDA decode
+    takes a contiguous map only."""
+    return (x if dtype is None else x.float()).contiguous()
 
 
 def conv2d(in_ch: int, out_ch: int, kernel: int, stride: int = 1,

@@ -8,6 +8,14 @@ between stacks the re-injection ``x + merge_preds(pred) +
 merge_features(feature)``.  Residual blocks are pre-activation
 (BN->ReLU->conv, three times) with a 1x1 skip only on a channel change.
 
+Int8 (the JAX package's ``quant_mode``): every conv of a
+:class:`ConvBlock` but the merges' is a
+:class:`~awr_tpu_torch.models.quant.QuantConv`, 55 layers in
+``hourglass_1`` (the 5x5 stem, every residual conv and skip,
+``feature_conv``); the 1x1 heads ``outs_1``/``outs_2`` and the ``Merge``
+convs stay float, in the compute dtype.  In mode "off" a ``QuantConv`` is
+the float conv, and its scale is no ``state_dict`` entry.
+
 Submodule names give ``state_dict()`` the reference's key layout
 (``pre.0.conv.weight``, ``hgs.0.0.up1.bn1.weight``, ``outs_1.0.weight``,
 ``merge_preds.0.conv.conv.weight``, ...), so a reference ``.pth`` loads
@@ -23,15 +31,20 @@ from awr_tpu_torch.models.common import (ComputeDtype, batch_norm, conv2d,
                                          map_out, max_pool, rematerialized,
                                          torch_default_init_,
                                          upsample_nearest_2x)
+from awr_tpu_torch.models.quant import QuantConv
 
 
 class ConvBlock(nn.Module):
-    """Conv (bias always on) (+BN) (+ReLU) (reference hourglass.py:6-25)."""
+    """Conv (bias always on) (+BN) (+ReLU) (reference hourglass.py:6-25);
+    the conv is a ``QuantConv`` unless ``quant`` is False."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
-                 stride: int = 1, bn: bool = False, relu: bool = True):
+                 stride: int = 1, bn: bool = False, relu: bool = True,
+                 quant: bool = True):
         super().__init__()
-        self.conv = conv2d(in_ch, out_ch, kernel, stride)
+        self.conv = (QuantConv(in_ch, out_ch, kernel, stride,
+                               (kernel - 1) // 2) if quant
+                     else conv2d(in_ch, out_ch, kernel, stride))
         self.bn = batch_norm(out_ch) if bn else None
         self.relu = relu
 
@@ -147,7 +160,7 @@ class Merge(nn.Module):
 
     def __init__(self, in_ch: int, out_ch: int):
         super().__init__()
-        self.conv = ConvBlock(in_ch, out_ch, 1, relu=False)
+        self.conv = ConvBlock(in_ch, out_ch, 1, relu=False, quant=False)
 
     def forward(self, x):
         return self.conv(x)

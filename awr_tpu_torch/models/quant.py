@@ -21,15 +21,28 @@
 :class:`QuantConv` and :class:`QuantConvTranspose` are the port's
 ``Conv2d`` and ``ConvTranspose2d`` with a ``mode``: "off" (the float
 layer), "calib" (the float layer, recording the input's amplitude),
-"int8", or "int8_w" (weights only: the weight's int8 codes times its
+"int8", "int8_w" (weights only: the weight's int8 codes times its
 scales, in the compute dtype, through the float layer; for telling
-weight rounding from activation clipping).  The activation scale is a
-non-persistent buffer, so the ``state_dict`` keys are the same in every
-mode and a reference checkpoint loads unchanged.
+weight rounding from activation clipping), or "qat" (quantization-aware
+training: the int8 forward's values, fake-quantized, with
+straight-through gradients; see :func:`_ste`).  The activation scale is
+a non-persistent buffer, so the ``state_dict`` keys are the same in
+every mode and a reference checkpoint loads unchanged.
+
+In "qat" the activation scale stays frozen at its calibrated value (a
+zero scale takes the batch's max|x| / 127), the input and the weight
+are their codes times their scales, and the conv runs in float32 with
+TF32 off, forward and backward, whatever the compute dtype and the
+global ``torch.backends.cudnn.allow_tf32``: TF32 would round the
+fake-quantized operands and move the objective away from the exact
+int32 products it stands in for (the JAX package's
+``Precision.HIGHEST``).  The result is then cast to the compute dtype
+(the weight's if None) and the bias added in it.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Iterable
 
 import torch
@@ -41,7 +54,15 @@ from awr_tpu_torch.ops import int8 as int8_plain
 from awr_tpu_torch.ops import int8_cuda
 
 _QMAX = 127.0
-MODES = ("off", "calib", "int8", "int8_w")
+MODES = ("off", "calib", "int8", "int8_w", "qat")
+
+
+def _over_qmax(amax: torch.Tensor) -> torch.Tensor:
+    """``amax / 127``, correctly rounded on every device: on a CUDA
+    tensor PyTorch divides by a Python number as a product with its
+    float32 reciprocal, at times one ulp off the CPU's quotient, which
+    moves a scale and can flip a code at a rounding tie."""
+    return amax / amax.new_full((), _QMAX)
 
 
 def _quantize_weights(weight: torch.Tensor, dims):
@@ -50,7 +71,7 @@ def _quantize_weights(weight: torch.Tensor, dims):
     codes, float32 scales with ``dims`` kept)."""
     w32 = weight.float()
     amax = w32.abs().amax(dim=dims, keepdim=True)
-    scale = torch.clamp(amax / _QMAX, min=1e-12)
+    scale = torch.clamp(_over_qmax(amax), min=1e-12)
     return torch.clamp(torch.round(w32 / scale), -_QMAX, _QMAX), scale
 
 
@@ -59,6 +80,58 @@ def _quantize_acts(x: torch.Tensor, scale: torch.Tensor):
     Returns (float32 codes, float32 scale)."""
     s = torch.clamp(scale, min=1e-12).float()
     return torch.clamp(torch.round(x.float() / s), -_QMAX, _QMAX), s
+
+
+def _ste(x: torch.Tensor, x_fq: torch.Tensor) -> torch.Tensor:
+    """Straight-through estimator: the value of ``x_fq`` (fake-quantized
+    ``x``), float32, with the gradient of the identity in ``x``, 1 at
+    every element, those clipped to +-127 codes too (as the JAX
+    package's ``_ste``; PyTorch's fake-quantize ops zero the clipped
+    ones)."""
+    x32 = x.float()
+    return x32 + (x_fq.float() - x32).detach()
+
+
+def _qat_act_scale(x: torch.Tensor, stored: torch.Tensor) -> torch.Tensor:
+    """The frozen calibrated scale, or where it is 0 the batch's
+    max|x| / 127."""
+    s_batch = _over_qmax(x.detach().float().abs().amax())
+    return torch.where(stored > 0, stored.float(), s_batch)
+
+
+@contextlib.contextmanager
+def _tf32_off():
+    """cuDNN convs in IEEE float32 inside, the caller's setting after."""
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """A float32 conv or transposed conv (no bias, no groups or dilation)
+    whose forward and backward both run with TF32 off."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, transposed):
+        ctx.save_for_backward(x, w)
+        ctx.conf = stride, padding, transposed
+        with _tf32_off():
+            if transposed:
+                return F.conv_transpose2d(x, w, None, stride, padding)
+            return F.conv2d(x, w, None, stride, padding)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, transposed = ctx.conf
+        with _tf32_off():
+            gx, gw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, (1, 1), transposed, (0, 0),
+                1, (ctx.needs_input_grad[0], ctx.needs_input_grad[1], False))
+        return gx, gw, None, None, None
 
 
 def _calib_amax(x: torch.Tensor, percentile: float) -> torch.Tensor:
@@ -109,10 +182,21 @@ class _QuantMixin:
     def _record(self, x: torch.Tensor) -> None:
         with torch.no_grad():
             amax = _calib_amax(x, self.calib_percentile)
-            self.act_scale.copy_(torch.maximum(self.act_scale, amax / _QMAX))
+            self.act_scale.copy_(torch.maximum(self.act_scale,
+                                               _over_qmax(amax)))
 
     def _out_dtype(self) -> torch.dtype:
         return self.compute_dtype or torch.float32
+
+    def _qat(self, x, dims, transposed) -> torch.Tensor:
+        """The "qat" forward: fake-quantized input and weight through the
+        float32 layer, cast to the compute dtype (the weight's if None, as
+        the float layer's; the JAX package's module ``dtype``)."""
+        xq, s_in = _quantize_acts(x, _qat_act_scale(x, self.act_scale))
+        wq, s_w = _quantize_weights(self.weight, dims)
+        y = _Fp32Conv.apply(_ste(x, xq * s_in), _ste(self.weight, wq * s_w),
+                            self.stride, self.padding, transposed)
+        return y.to(self.compute_dtype or self.weight.dtype)
 
     def _weight_only(self, dims) -> torch.Tensor:
         """The weight's int8 codes times their scales, in the compute
@@ -134,12 +218,17 @@ class QuantConv(_QuantMixin, Conv2d):
         if self.mode == "int8_w":
             x, bias = self._cast(x, self.bias)
             return self._conv_forward(x, self._weight_only((1, 2, 3)), bias)
-        if self.mode != "int8":
+        if self.mode not in ("int8", "qat"):
             return super().forward(x)
         if self.groups != 1 or self.dilation != (1, 1) or \
                 self.padding_mode != "zeros":
             raise NotImplementedError("int8 conv: groups, dilation and "
                                       "padding modes are not supported")
+        if self.mode == "qat":
+            y = self._qat(x, (1, 2, 3), False)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype).view(1, -1, 1, 1)
+            return y
         B, _, H, W = x.shape
         kh, kw = self.kernel_size
         (sh, sw), (ph, pw) = self.stride, self.padding
@@ -176,7 +265,7 @@ class QuantConvTranspose(_QuantMixin, ConvTranspose2d):
                 x, self._weight_only((0, 2, 3)), bias, self.stride,
                 self.padding, self.output_padding, self.groups,
                 self.dilation)
-        if self.mode != "int8":
+        if self.mode not in ("int8", "qat"):
             return super().forward(x, output_size)
         if (self.kernel_size != (4, 4) or self.stride != (2, 2)
                 or self.padding != (1, 1) or self.output_padding != (0, 0)
@@ -185,6 +274,8 @@ class QuantConvTranspose(_QuantMixin, ConvTranspose2d):
             raise NotImplementedError("int8 transposed conv: only "
                                       "ConvTranspose2d(k4, s2, p1, "
                                       "bias=False)")
+        if self.mode == "qat":
+            return self._qat(x, (0, 2, 3), True)
         xq, s_in = _quantize_acts(x, self.act_scale)
         wq, s_w = _quantize_weights(self.weight, (0, 2, 3))
         x8 = _to_int8(xq.permute(0, 2, 3, 1))  # NHWC

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from awr_tpu_torch.models.hourglass import PoseNet, Residual
+from awr_tpu_torch.models.quant import quant_layers
 from awr_tpu_torch.models.resnet import Bottleneck, ResNetDeconv
 
 
@@ -177,15 +178,19 @@ def load_flax_train_state(model: nn.Module, optimizer: torch.optim.Adam,
     return model
 
 
-def load_flax_quant(model: ResNetDeconv, quant) -> dict:
-    """The JAX package's calibrated ``quant`` collection (``{"pre_conv":
-    {"act_scale": s}, "layer1_0": {"conv1": {...}}, "deconv0": ...}``)
-    as the port's activation scales for ``model``, by module name: what
-    :func:`awr_tpu_torch.models.quant.set_int8` and ``Predictor.quant``
-    take.  Raises if a quantized layer has no scale."""
+def load_flax_quant(model: nn.Module, quant) -> dict:
+    """The JAX package's calibrated ``quant`` collection as the port's
+    activation scales for ``model`` (a PoseNet or ResNetDeconv), by
+    module name: what :func:`awr_tpu_torch.models.quant.set_int8` and
+    ``Predictor.quant`` take.  A ResNet's scale sits at its layer's path
+    (``{"pre_conv": {"act_scale": s}, "layer1_0": {"conv1": ...}}``), an
+    hourglass conv's at its ``Conv_0`` (``{"pre_res1": {"conv2":
+    {"Conv_0": ...}}}``); the float heads and merges have none.  Raises
+    if a quantized layer has no scale."""
+    layers = quant_layers(model)
     return {key: torch.tensor(float(np.asarray(
                 _node(quant, path)["act_scale"])), dtype=torch.float32)
-            for kind, key, path in _layout(model) if kind == "kernel"}
+            for _, key, path in _layout(model) if key in layers}
 
 
 def _unused_reference_key(model: nn.Module, key: str) -> bool:

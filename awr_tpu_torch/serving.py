@@ -6,13 +6,15 @@ the host, crop and normalize on the device, the backbone forward, the
 AWR decode (the hand-written CUDA kernel on a GPU), and the
 de-normalization back to (u px, v px, d mm) in the original camera
 frame, the reference's results/*.txt convention.  :meth:`Predictor.quantize`
-switches a ResNet-deconv Predictor to int8 inference.  The backbone runs
+switches a Predictor of either backbone to int8 inference,
+:meth:`Predictor.quantize_qat` after a validated QAT fine-tune.  The backbone runs
 in ``config.compute_dtype`` (float32 or bfloat16; the weights stay
 float32), the decode on its float32 map.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Optional
 
 import numpy as np
@@ -26,6 +28,7 @@ from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import set_compute_dtype
 from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
+from awr_tpu_torch.training import qat
 from awr_tpu_torch.training.steps import make_infer_step
 
 
@@ -52,6 +55,8 @@ class Predictor:
         self._infer = make_infer_step(self.model, config)
         # calibrated int8 activation scales by layer name, once quantized
         self.quant = None
+        # the holdout scores of the last validated quantize_qat
+        self.qat_validation = None
 
     @classmethod
     def from_checkpoint(cls, config: Config, ckpt_dir: str,
@@ -89,10 +94,6 @@ class Predictor:
         ``percentile``: the calibration statistic; the default p99.99
         clips activation outliers (the JAX package measured it better
         than the max on trained nets)."""
-        if not self.cfg.net.startswith("resnet"):
-            raise NotImplementedError(
-                f"int8 {self.cfg.net}: the port quantizes the ResNet-deconv "
-                "only; int8 hourglass is a later slice")
         imgs = np.asarray(calib_imgs_normalized, np.float32)
         if imgs.ndim != 3 or len(imgs) == 0:
             raise ValueError(f"expected (N, S, S) frames, got {imgs.shape}")
@@ -105,6 +106,60 @@ class Predictor:
         """Serve the int8 forward with the scales in ``self.quant``."""
         set_int8(self.model, {k: v.to(self.device)
                               for k, v in self.quant.items()})
+
+    def quantize_qat(self, labeled_batches, steps: Optional[int] = None,
+                     lr: Optional[float] = None, percentile: float = 99.99,
+                     holdout_batches=None) -> list:
+        """Switch to int8 inference after a quantization-aware fine-tune
+        (:func:`awr_tpu_torch.training.qat.finetune`) of a copy of the
+        weights; returns the per-step losses.
+
+        ``labeled_batches``: dicts of ``img`` (B, S, S) normalized depth
+        and ``jt_uvd`` (B, J, 3) normalized targets
+        (``training.qat.batches_from_dataset``); they calibrate the
+        scales unless an earlier :meth:`quantize` did, whose scales are
+        kept.  ``steps``/``lr`` default to the gentle recipe
+        (``training.qat.gap_scaled_recipe``, 100 at 1e-5).
+
+        ``holdout_batches`` (the same format, data the fine-tune does not
+        see) validates it: the PTQ and the fine-tuned weights are scored
+        in int8 with the same scales, and unless the fine-tune's mean
+        joint error (not its loss) is as low or lower (a NaN, from a
+        fine-tune that diverged, is not), the Predictor serves the PTQ
+        weights and BatchNorm statistics as they were.  The scores go to
+        ``self.qat_validation`` (``ptq_loss``, ``qat_loss``,
+        ``ptq_joint_err``, ``qat_joint_err``, ``fell_back``).
+
+        The fine-tune and the scoring run on copies: an exception leaves
+        the model, its mode, ``self.quant`` and ``qat_validation`` as
+        they were."""
+        d_steps, d_lr = qat.gap_scaled_recipe()
+        model, quant, losses = qat.finetune(
+            self.cfg, self.model, labeled_batches,
+            steps=d_steps if steps is None else steps,
+            lr=d_lr if lr is None else lr, percentile=percentile,
+            quant=self.quant)
+        validation = None
+        if holdout_batches:
+            ptq = copy.deepcopy(self.model)
+            ptq_m, qat_m = qat.int8_holdout_metrics(
+                self.cfg, quant, holdout_batches, ptq, model)
+            # a fine-tune whose joints are not finite scores NaN: kept
+            # only if it scores no worse
+            fell_back = not qat_m["joint_err"] <= ptq_m["joint_err"]
+            validation = dict(ptq_loss=ptq_m["loss"], qat_loss=qat_m["loss"],
+                              ptq_joint_err=ptq_m["joint_err"],
+                              qat_joint_err=qat_m["joint_err"],
+                              fell_back=fell_back)
+            if fell_back:
+                model = ptq
+        self.model = model.eval()
+        self._infer = make_infer_step(self.model, self.cfg)
+        self.quant = quant
+        self._switch_int8()
+        if validation is not None:
+            self.qat_validation = validation
+        return losses
 
     def _bucket(self, n: int) -> int:
         """Pad batch size up to a power-of-two bucket (min 8), so the

@@ -30,6 +30,23 @@ float32, TF32 off (then bf16, phase ``bf16``):
   kernel beside its plain version, its bound and its library call (the
   decode at B = 8, 32 and 256); then ``torch.profiler`` breakdowns
   of the train step and of the int8 forward by kernel;
+- serve_hourglass_int8: hourglass_1 ``Predictor.quantize`` on 32 crops,
+  then int8 requests (55 int8 GEMMs and one decode each: the stem, every
+  residual conv and skip, ``feature_conv``) in float32 and bf16 compute
+  with exact launch counts, a contiguous map, the joints against float32
+  ones and (float32) against an int8 Predictor on the CPU with the card's
+  scales; request and device times at B = 1, 32 and 256 with the peak
+  memory; the GEMM at the B = 256 stem shape (M * K past 2**31) against
+  its plain version; the 55 GEMMs of a B = 32 request against their
+  bound; a profile of the int8 forward;
+- qat: for hourglass_1 and resnet_18, ``quantize`` then ``quantize_qat``
+  on two labeled 32-frame grid-layout batches with one held out (exact
+  launch counts: one encode, decode and decode backward a QAT step, the
+  int8 kernels in the holdout's eval steps), int8 after QAT against the
+  CPU, the QAT step's device time beside the float32 step's, the
+  ruinous-lr fallback (bit-equal PTQ weights and statistics), and the
+  QAT forward against the int8 forward with TF32 on globally (and
+  against itself with TF32 off);
 - trainer: the training CLI (``awr_tpu_torch.training.train.main``,
   hourglass_1, raw mode, B = 32, 256 synthetic train and 64 test frames)
   for 2 epochs with exact kernel launch counts, its checkpoints, a
@@ -75,6 +92,7 @@ the port only.
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import os
 import subprocess
@@ -96,21 +114,26 @@ from awr_tpu_torch.data.device import (crop_normalize_batch,
 from awr_tpu_torch.data.hands17 import HANDS17_PARAS
 from awr_tpu_torch.data.nyu import (EVAL_SELECT, JOINT_SELECT, NYU_FLIP,
                                     NYU_PARAS, NYUDataset)
-from awr_tpu_torch.data.synthetic import render_hand_depth, synthetic_frames
+from awr_tpu_torch.data.synthetic import (SyntheticHandDataset,
+                                          render_hand_depth, synthetic_frames)
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
-from awr_tpu_torch.models.quant import QuantConv, quant_layers
+from awr_tpu_torch.models.quant import (QuantConv, quant_layers, set_int8,
+                                        set_quant_mode)
 from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
+from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
                                           offset2joint_softmax_backward,
                                           offset2joint_softmax_stats)
 from awr_tpu_torch.serving import Predictor
 from awr_tpu_torch.training import evaluate as evaluate_cli
 from awr_tpu_torch.training import train as train_cli
+from awr_tpu_torch.training import qat
 from awr_tpu_torch.training.optim import make_optimizer
 from awr_tpu_torch.training.steps import (make_raw_eval_step,
-                                          make_raw_train_step)
+                                          make_raw_train_step,
+                                          make_train_step)
 from awr_tpu_torch.training.trainer import Trainer
 from awr_tpu_torch.utils import png
 
@@ -213,6 +236,44 @@ RESNET_STEPS = 10
 # would move the statistics by 90 % of the first; the batch counters
 # must be equal
 REMAT_RTOL_OF_MAX = 1e-4
+# An int8 Predictor on the card against one on the CPU with the same
+# weights and scales (:func:`int8_vs_cpu`), on INT8_CPU_CROPS crops.
+# Layer by layer, each quantized layer run on the card's own input: the
+# codes, the integer products, the dequantizing product and its rounding
+# to the compute dtype are the same operations on both devices, so the
+# outputs are bit-equal, in float32 and in bf16 (a planted fault, one
+# layer's activation scale doubled on the card, reads 0.0097 to 0.029 of
+# max |output| on the H100).  End to end, on the joints: the float layers
+# (BatchNorm, adds, heads) round differently on the two devices, a code
+# on a rounding boundary flips by one step, and the flips reach the
+# joints (INT8_CPU_ATOL's reason).  Through the 55 int8 convs of
+# hourglass_1 they read 0.0024 to 0.0105 on the H100 (bf16, float32,
+# after QAT), the planted faults 0.0129 to 0.0235, int8's own drift
+# from float32 0.028: the bar lies between the sound and the planted
+# readings.
+INT8_CPU_CROPS = 8
+INT8_LAYER_RTOL_OF_MAX = 0.0
+HG_INT8_CPU_ATOL = 0.012
+# the int8 hourglass_1: quantized convs a request; the GEMM at B = 256's
+# largest shape, the stem's 3x3 (pre.1.conv2: 256 * 128**2 rows, M * K
+# past 2**31), held against its plain version
+HG_INT8_GEMMS = 55
+HG_STEM_GEMM_B256 = (256 * 128 * 128, 576, 64)
+# QAT: labeled synthetic batches (B = 32) to fine-tune on and to hold out,
+# fine-tune steps, the gentle recipe's lr; the ruinous lr of the fallback
+# check.  QAT forward against int8 forward: the JAX package's bars
+# (tests/test_quant.py:207-238), 0.05 of max |map|, 0.02 on the joints.
+QAT_TUNE_BATCHES = 2
+QAT_HOLDOUT_BATCHES = 1
+QAT_STEPS = 4
+QAT_LR = 1e-5
+QAT_RUINOUS_LR = 50.0
+QAT_MAP_RTOL_OF_MAX = 0.05
+QAT_JOINT_ATOL = 0.02
+# each QAT conv's output with TF32 on globally against it with TF32 off:
+# the same float32 convs (TF32 is forced off inside), so equal up to cuDNN
+# choosing another algorithm; TF32 moves a conv by ~1e-3 of its scale
+QAT_TF32_RTOL_OF_MAX = 1e-5
 # (HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s) from
 # NVIDIA's data sheets; dense int8 is half the with-sparsity figure
 PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
@@ -910,7 +971,8 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
 
 def gemm_request(pred_q, img, bw, int8_ops):
     """The int8 GEMM at every distinct shape of one request on ``img``,
-    summed over the request's 20 GEMMs.  B is passed as a QuantConv
+    each held equal to its plain version, then timed and summed over the
+    request's GEMMs.  B is passed as a QuantConv
     passes it, the transposed view of a contiguous (N, K) weight, which
     the wrapper takes without a copy.  The library call is torch._int_mm
     on a contiguous (K, N) B, with K padded by zeros to a multiple of 8
@@ -920,9 +982,16 @@ def gemm_request(pred_q, img, bw, int8_ops):
     for M, K, N in sorted(set(shapes)):
         def gemm_args(M=M, K=K, N=N):
             return int8_codes((M, K), M + K), int8_codes((N, K), N).t()
+        a, b = gemm_args()
+        if not torch.equal(int8_cuda.int8_matmul_cuda(a, b),
+                           int8.int8_matmul(a, b)):
+            raise AssertionError(f"int8 GEMM disagrees with its plain "
+                                 f"version at {M}x{K}x{N}")
+        del a, b
         r = kernel_times(int8_cuda.int8_matmul_cuda, int8.int8_matmul,
                          gemm_args, M * K + K * N + 4 * M * N, 2 * M * K * N,
                          bw, int8_ops)
+        r["equal_plain"] = True
         Kp = -(-K // 8) * 8
 
         def lib_args(M=M, K=K, N=N, Kp=Kp):
@@ -1606,6 +1675,29 @@ def phase_datasets():
     return launches
 
 
+def request_times(pred, fp32, frames, centers, crops):
+    """``pred``'s request time and peak memory at each of BF16_BATCHES,
+    and the device time of its forward and decode at the bucket
+    ``predict`` pads the batch to, beside ``fp32``'s."""
+    out = {}
+    for B in BF16_BATCHES:
+        f = np.resize(frames, (B,) + frames.shape[1:])
+        c = np.resize(centers, (B, 3))
+        torch.cuda.reset_peak_memory_stats()
+        ms = host_ms(lambda: pred.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
+        bucket = pred._bucket(B)
+        img = torch.from_numpy(np.resize(crops, (bucket,) + crops.shape[1:]))
+        out[f"b{B}"] = {"predict_ms": ms, "predict_fps": B / ms * 1e3,
+                        "device_batch": bucket,
+                        "peak_memory_gb": torch.cuda.max_memory_allocated()
+                        / 1e9,
+                        "device_ms": device_ms(pred._infer, [(img.cuda(),)],
+                                               10),
+                        "fp32_device_ms": device_ms(fp32._infer,
+                                                    [(img.cuda(),)], 10)}
+    return out
+
+
 def bf16_serving(cfg, sd, frames, centers, quantize=False):
     """A bf16 Predictor (int8 with ``quantize``) of the float32 state
     ``sd`` against a float32 one: requests at SERVE_BATCHES with exact
@@ -1633,19 +1725,7 @@ def bf16_serving(cfg, sd, frames, centers, quantize=False):
            "drift_vs_fp32_max": float(np.abs(got - ref).max()),
            "drift_vs_fp32_mean": float(np.abs(got - ref).mean()),
            "drift_bar": BF16_DRIFT_MAX}
-    for B in BF16_BATCHES:
-        f = np.resize(frames, (B,) + frames.shape[1:])
-        c = np.resize(centers, (B, 3))
-        ms = host_ms(lambda: pred.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
-        # the device path at the bucket ``predict`` pads the batch to
-        bucket = pred._bucket(B)
-        img = torch.from_numpy(np.resize(crops, (bucket,) + crops.shape[1:]))
-        out[f"b{B}"] = {"predict_ms": ms, "predict_fps": B / ms * 1e3,
-                        "device_batch": bucket,
-                        "device_ms": device_ms(pred._infer, [(img.cuda(),)],
-                                               10),
-                        "fp32_device_ms": device_ms(fp32._infer,
-                                                    [(img.cuda(),)], 10)}
+    out.update(request_times(pred, fp32, frames, centers, crops))
     if not out["drift_vs_fp32_max"] < BF16_DRIFT_MAX:
         raise AssertionError(f"{name}: joints drift {out} from float32")
     return name, out
@@ -1756,6 +1836,323 @@ def phase_bf16(frames, joints, centers):
     return launches, steps
 
 
+def hourglass_int8(cfg, sd, crops, frames, centers):
+    """An int8 hourglass_1 Predictor in ``cfg``'s compute dtype, quantized
+    on ``crops``: requests at SERVE_BATCHES with exact launch counts (55
+    int8 GEMMs and one decode each), a contiguous map, the joints' drift
+    from a float32 Predictor of the same weights, request and device
+    times at BF16_BATCHES and the peak memory of a B = 256 request."""
+    pred = Predictor(cfg, sd, device="cuda")
+    fp32 = Predictor(cfg.replace(compute_dtype="float32"), sd, device="cuda")
+    reset_counts()
+    pred.quantize(crops)
+    torch.cuda.synchronize()
+    check_launches("calibrate hourglass_1", counts(), {})
+    reset_counts()
+    outs = {B: pred.predict(frames[:B], centers[:B]) for B in SERVE_BATCHES}
+    torch.cuda.synchronize()
+    launches = counts()
+    n = len(outs)
+    for B, o in outs.items():
+        if o.shape != (B, cfg.jt_num, 3) or not np.isfinite(o).all():
+            raise AssertionError(f"int8 hourglass batch {B}: bad output")
+    with torch.no_grad():
+        maps = pred.model(torch.from_numpy(crops[:8]).cuda()[:, None])
+    got, ref = pred.predict_normalized(crops), fp32.predict_normalized(crops)
+    out = {"compute_dtype": cfg.compute_dtype, "launches": launches,
+           "quant_layers": len(pred.quant),
+           "map_contiguous": bool(maps.is_contiguous()),
+           "drift_vs_fp32_max": float(np.abs(got - ref).max()),
+           "drift_vs_fp32_mean": float(np.abs(got - ref).mean()),
+           "drift_bar": INT8_DRIFT_MAX}
+    check_launches(f"serve_hourglass_int8 {cfg.compute_dtype}", launches,
+                   {"int8_gemm": HG_INT8_GEMMS * n, "decode": n})
+    if len(pred.quant) != HG_INT8_GEMMS or not out["map_contiguous"]:
+        raise AssertionError(f"int8 hourglass: {out}")
+    if not out["drift_vs_fp32_max"] < INT8_DRIFT_MAX:
+        raise AssertionError(f"int8 hourglass joints drift: {out}")
+    out.update(request_times(pred, fp32, frames, centers, crops))
+    return pred, out
+
+
+def int8_vs_cpu(pred, crops, plant=False):
+    """The int8 Predictor ``pred`` on the card against an int8 Predictor
+    on the CPU with the same weights and scales, on INT8_CPU_CROPS of
+    ``crops``: each quantized layer on the card's own input against the
+    CPU layer on that input (max |diff| over max |CPU output|, the worst
+    layer's), and the normalized joints end to end.  With ``plant``, the
+    same readings with one layer's activation scale doubled on the card,
+    for the first, the middle and the last quantized layer in turn: what
+    a layer served at a wrong scale reads."""
+    img = crops[:INT8_CPU_CROPS]
+    cfg = pred.cfg
+    cpu = Predictor(cfg, pred.model.state_dict(), device="cpu")
+    cpu.quant = {k: v.cpu() for k, v in pred.quant.items()}
+    cpu._switch_int8()
+    want = cpu.predict_normalized(img)
+    card_layers, cpu_layers = quant_layers(pred.model), quant_layers(
+        cpu.model)
+    x = torch.from_numpy(img).cuda()[:, None]
+
+    def layer_errs(names):
+        seen = {}
+        hooks = [card_layers[n].register_forward_hook(
+            lambda m, a, y, n=n: seen.__setitem__(n, (a[0].cpu(), y.cpu())))
+            for n in names]
+        try:
+            with torch.no_grad():
+                pred.model(x)
+                return {n: rel_to_max(y.float(), cpu_layers[n](a).float())
+                        for n, (a, y) in seen.items()}
+        finally:
+            for h in hooks:
+                h.remove()
+
+    def joint_errs():
+        d = np.abs(pred.predict_normalized(img) - want)
+        return float(d.max()), float(d.mean())
+
+    errs = layer_errs(list(card_layers))
+    worst = max(errs, key=errs.get)
+    out = {"crops": len(img), "layers": len(errs),
+           "layer_rel_to_max": errs[worst], "worst_layer": worst,
+           "layer_bar": INT8_LAYER_RTOL_OF_MAX,
+           "atol": (HG_INT8_CPU_ATOL if cfg.net.startswith("hourglass")
+                    else INT8_CPU_ATOL)}
+    out["joints_max_abs"], out["joints_mean_abs"] = joint_errs()
+    if plant:
+        names = list(card_layers)
+        out["planted"] = {}
+        for n in (names[0], names[len(names) // 2], names[-1]):
+            scale = card_layers[n].act_scale
+            keep = scale.clone()
+            scale.mul_(2.0)
+            try:
+                r = {"layer_rel_to_max": layer_errs([n])[n]}
+                r["joints_max_abs"], r["joints_mean_abs"] = joint_errs()
+            finally:
+                scale.copy_(keep)
+            out["planted"][n] = r
+    return out
+
+
+def check_int8_vs_cpu(name, res):
+    """Raises unless :func:`int8_vs_cpu`'s readings are within its bars
+    and every planted fault reads above the layer bar."""
+    if not (res["layer_rel_to_max"] <= res["layer_bar"]
+            and res["joints_max_abs"] <= res["atol"]):
+        raise AssertionError(f"{name}: the card disagrees with the CPU: "
+                             f"{res}")
+    blind = {n: r for n, r in res.get("planted", {}).items()
+             if not r["layer_rel_to_max"] > res["layer_bar"]}
+    if blind:
+        raise AssertionError(f"{name}: planted faults read within the "
+                             f"layer bar: {blind}")
+
+
+def phase_serve_hourglass_int8(frames, centers, bw, int8_ops):
+    """int8 hourglass_1 serving at full width (55 quantized convs: the
+    stem, every residual conv and skip, ``feature_conv``; the heads and
+    merges float), float32 and bf16 compute: :func:`hourglass_int8`; each
+    Predictor against an int8 one on the CPU with the card's scales, with
+    planted faults (:func:`int8_vs_cpu`); the int8 GEMM at B = 256's stem
+    shape against its plain version; the 55 GEMMs of a B = 32 request,
+    each shape held against its plain version and timed against its
+    bound."""
+    cfg = hourglass_config()
+    model = build_model(cfg.net, cfg.jt_num)
+    torch_default_init_(model, torch.Generator().manual_seed(SEED))
+    sd = randomize_batch_norm_(model).state_dict()
+    crops = normalized_crops(cfg, frames, centers)
+    out = {"phase": "serve_hourglass_int8", "net": cfg.net,
+           "img_size": cfg.img_size, "requests": list(SERVE_BATCHES)}
+    launches = {}
+    preds = {}
+    for dtype in ("float32", "bfloat16"):
+        name = ("serve_hourglass_int8" if dtype == "float32"
+                else "bf16_serve_hourglass_int8")
+        preds[dtype], out[dtype] = hourglass_int8(
+            cfg.replace(compute_dtype=dtype), sd, crops, frames, centers)
+        launches[name] = out[dtype]["launches"]
+        out[dtype]["vs_cpu"] = int8_vs_cpu(preds[dtype], crops, plant=True)
+    pred = preds["float32"]
+
+    M, K, N = HG_STEM_GEMM_B256
+    a, b = int8_codes((M, K), M), int8_codes((N, K), N).t()
+    got = int8_cuda.int8_matmul_cuda(a, b)
+    torch.cuda.synchronize()
+    want = int8.int8_matmul(a, b)
+    out["stem_gemm_b256"] = {"shape": [M, K, N], "m_times_k": M * K,
+                             "plan": int8_cuda.gemm_plan(M, K, N)._asdict(),
+                             "equal_plain": bool(torch.equal(got, want))}
+    del a, b, got, want
+    out["int8_gemm_request_b32"] = gemm_request(
+        pred, torch.from_numpy(crops).cuda(), bw, int8_ops)
+    emit(out)
+    if not out["stem_gemm_b256"]["equal_plain"]:
+        raise AssertionError("int8 GEMM disagrees at the B = 256 stem shape")
+    for dtype in preds:
+        check_int8_vs_cpu(f"int8 hourglass_1 {dtype}", out[dtype]["vs_cpu"])
+    phase_profile("serve_hourglass_int8 forward + decode, B = 32",
+                  pred._infer, (torch.from_numpy(crops).cuda(),),
+                  groups=INT8_GROUPS)
+    return launches
+
+
+def labeled_batches(n, phase, seed):
+    """``n`` host-mode (img, jt_uvd) batches of TRAIN_BATCH grid-layout
+    synthetic frames (every joint visible)."""
+    ds = SyntheticHandDataset(n * TRAIN_BATCH, 14, 128, phase=phase,
+                              seed=seed, layout="grid")
+    return qat.batches_from_dataset(ds, TRAIN_BATCH, n)
+
+
+def qat_vs_int8(cfg, model, img):
+    """Mode "qat" against mode "int8" of the int8 ``model`` in eval on
+    ``img``, both forwards run with TF32 on globally: the last stack's
+    map (max |diff| over max |int8 map|) and the decoded joints; and each
+    QAT conv's output against the same forward's with TF32 off (the float
+    heads after them do take TF32 when it is on).  Leaves the model in
+    "int8" and TF32 off."""
+    maps, conv_out, out = {}, {}, {}
+    hooks = [m.register_forward_hook(
+        lambda m, a, y, n=n: conv_out.setdefault(n, []).append(y))
+        for n, m in quant_layers(model).items()]
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with torch.no_grad():
+            maps["int8"] = model(img[:, None])
+            conv_out.clear()
+            set_quant_mode(model, "qat")
+            maps["qat"] = model(img[:, None])
+            out["tf32_on_after_qat_forward"] = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        model(img[:, None])
+    for h in hooks:
+        h.remove()
+    set_quant_mode(model, "int8")
+    last = {k: v if v.dim() == 4 else v[-1] for k, v in maps.items()}
+    q8, fq = last["int8"], last["qat"]
+    k = cfg.kernel_size
+    out.update(
+        map_rel_to_max=rel_to_max(fq, q8),
+        joints_max_abs=float((decode_offsets(fq, img, k)
+                              - decode_offsets(q8, img, k)).abs().max()),
+        map_bar=QAT_MAP_RTOL_OF_MAX, joint_bar=QAT_JOINT_ATOL,
+        qat_convs_tf32_on_vs_off_rel_to_max=max(
+            rel_to_max(on, off) for on, off in conv_out.values()),
+        tf32_bar=QAT_TF32_RTOL_OF_MAX)
+    return out
+
+
+def check_qat_family(name, res):
+    """Raises unless :func:`qat_family`'s readings are within their
+    bars."""
+    q = res["qat_vs_int8"]
+    if not (q["map_rel_to_max"] < q["map_bar"]
+            and q["joints_max_abs"] < q["joint_bar"]
+            and q["qat_convs_tf32_on_vs_off_rel_to_max"] <= q["tf32_bar"]
+            and q["tf32_on_after_qat_forward"]):
+        raise AssertionError(f"{name}: QAT forward: {q}")
+    if not (res["ruinous"]["fell_back"] and res["ruinous"]["bit_equal"]):
+        raise AssertionError(f"{name}: ruinous lr kept: {res['ruinous']}")
+    check_int8_vs_cpu(f"{name}: int8 after QAT",
+                      res["int8_after_qat_vs_cpu"])
+
+
+def qat_family(cfg, sd, crops, tune, holdout):
+    """``Predictor.quantize`` then ``quantize_qat`` of one family on the
+    card with exact launch counts; the int8 Predictor after QAT against
+    the CPU; the QAT step's device time beside the float32 step's; the
+    ruinous-lr fallback, bit-equal; before the fine-tune, the QAT forward
+    against the int8 forward with TF32 on globally (:func:`qat_vs_int8`).
+    :func:`check_qat_family` holds the readings to their bars."""
+    name = f"qat_{cfg.net}"
+    pred = Predictor(cfg, sd, device="cuda")
+    pred.quantize(crops)
+    qat_int8 = qat_vs_int8(cfg, pred.model, torch.from_numpy(crops).cuda())
+    gemms = sum(isinstance(m, QuantConv)
+                for m in quant_layers(pred.model).values())
+    deconvs = len(pred.quant) - gemms
+    reset_counts()
+    # cuDNN's deterministic algorithms: the fine-tuned weights, and the
+    # readings taken on them below, are then the same in every run
+    torch.backends.cudnn.deterministic = True
+    try:
+        losses = pred.quantize_qat(tune, steps=QAT_STEPS, lr=QAT_LR,
+                                   holdout_batches=holdout)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    launches = counts()
+    # QAT steps: one encode, one decode and its backward each (one stack);
+    # the holdout: an int8 eval step of each of the two candidates a batch
+    evals = 2 * len(holdout)
+    check_launches(name, launches, {
+        "encode": QAT_STEPS + evals, "decode": QAT_STEPS + evals,
+        "decode_backward": QAT_STEPS, "int8_gemm": gemms * evals,
+        "deconv_int8": deconvs * evals})
+    out = {"qat_vs_int8": qat_int8, "launches": launches,
+           "steps": QAT_STEPS, "lr": QAT_LR,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "validation": pred.qat_validation}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+
+    # int8 after QAT, card against CPU with the same weights and scales
+    out["int8_after_qat_vs_cpu"] = int8_vs_cpu(pred, crops)
+
+    # device time of one QAT step and one float32 step at B = 32
+    batch = {k: torch.from_numpy(v).cuda() for k, v in tune[0].items()}
+    for mode in ("qat", "off"):
+        model = set_quant_mode(set_int8(copy.deepcopy(pred.model),
+                                        pred.quant), mode)
+        step = make_train_step(model, make_optimizer(
+            model.parameters(), cfg.optimizer, QAT_LR), cfg)
+        ms = device_ms(step, [(batch,)], 10)
+        out[f"{'qat' if mode == 'qat' else 'float32'}_step_ms_b32"] = ms
+        if mode == "qat":
+            phase_profile(f"qat step {cfg.net}, B = 32", step, (batch,))
+
+    # the ruinous lr: falls back to the PTQ weights and statistics
+    ruin = Predictor(cfg, sd, device="cuda")
+    ruin.quantize(crops)
+    held = [{"img": b["img"], "jt_uvd": ruin.predict_normalized(b["img"])}
+            for b in holdout]
+    before = {k: v.clone() for k, v in ruin.model.state_dict().items()}
+    ruin.quantize_qat(tune, steps=QAT_STEPS, lr=QAT_RUINOUS_LR,
+                      holdout_batches=held)
+    after = ruin.model.state_dict()
+    out["ruinous"] = dict(ruin.qat_validation, bit_equal=all(
+        torch.equal(after[k], v) for k, v in before.items()))
+    return name, out
+
+
+def phase_qat(frames, centers):
+    """Quantization-aware fine-tuning of both families at full width
+    through ``Predictor.quantize_qat`` (:func:`qat_family`), on labeled
+    grid-layout synthetic batches, with a holdout."""
+    tune = labeled_batches(QAT_TUNE_BATCHES, "train", SEED)
+    holdout = labeled_batches(QAT_HOLDOUT_BATCHES, "test", SEED + 1)
+    out = {"phase": "qat", "tune_batches": len(tune),
+           "holdout_batches": len(holdout), "batch": TRAIN_BATCH}
+    launches = {}
+    for cfg in (hourglass_config(coord_weight=0.1), resnet_config()):
+        model = build_model(cfg.net, cfg.jt_num, cfg.downsample)
+        torch_default_init_(model, torch.Generator().manual_seed(SEED))
+        sd = randomize_batch_norm_(model).state_dict()
+        crops = normalized_crops(cfg, frames, centers)
+        name, res = qat_family(cfg, sd, crops, tune, holdout)
+        launches[name] = res["launches"]
+        out[cfg.net] = res
+    emit(out)
+    for cfg in (hourglass_config(), resnet_config()):
+        check_qat_family(f"qat_{cfg.net}", out[cfg.net])
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1792,6 +2189,9 @@ def main() -> int:
                               TRAIN_BATCH, *cfg.augment_para)
     launches["trainer"] = phase_trainer(bare_fps,
                                         lambda: train(raw, p, aug))
+    launches.update(phase_serve_hourglass_int8(frames, centers, bw,
+                                               int8_ops))
+    launches.update(phase_qat(frames, centers))
     launches["train_resnet"] = phase_train_resnet(frames, joints, centers)
     launches.update(phase_datasets())
     bf16_launches, steps = phase_bf16(frames, joints, centers)

@@ -54,18 +54,9 @@ from awr_tpu_torch.training.checkpoints import CheckpointManager
 from awr_tpu_torch.training.optim import make_optimizer
 from awr_tpu_torch.training.steps import make_train_step
 from test_torch_train import make_batches
+from torch_port_weights import one_thread  # noqa: F401
 
 IMG = 32  # F = 16: the depth-4 hourglass needs F % 16 == 0
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """PyTorch on one thread while this file runs: its tensors are tiny,
-    and the suite's workers share the machine's cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 FORWARD = {"hourglass_1": 1, "resnet_18": 3}  # net: weight seed
 
 

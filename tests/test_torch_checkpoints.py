@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 from torch_port_weights import IMG, random_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.models import PoseNet as JaxPoseNet
 from awr_tpu.training import optim as jax_optim

@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (decode and its softmax statistics,
 decode backward, encode, int8 GEMM, int8 deconv) against their plain
-PyTorch versions, on the card, and an int8 resnet_18 request through
-them.  Needs no JAX; skips without a GPU.  On a machine with one:
+PyTorch versions, on the card, int8 requests of both backbones through
+them, and the QAT fine-tune's launches, fallback and TF32 rule.  Needs no
+JAX; skips without a GPU.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 """
@@ -451,3 +452,139 @@ def test_trainer_epoch_on_the_card(cuda, tmp_path):
     assert (tmp_path / "ckpt" / "1.pth").exists()
     assert tr.best_records["epoch"] == 1
     assert np.isfinite(tr.best_records["MPE"])
+
+
+def hourglass_int8_predictor(cuda, compute_dtype="float32", img=64):
+    from awr_tpu_torch.config import hourglass_config
+
+    cfg = hourglass_config(img_size=img, compute_dtype=compute_dtype)
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num),
+                                torch.Generator().manual_seed(0))
+    return Predictor(cfg, model, device=cuda)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_int8_hourglass_request_launches(cuda, compute_dtype):
+    """One int8 hourglass_1 request: 55 int8 GEMMs (the stem, every
+    residual conv and skip, feature_conv; not the heads or merges), one
+    decode, nothing else; a contiguous map; joints near the float32
+    ones."""
+    pred = hourglass_int8_predictor(cuda, compute_dtype)
+    fp32 = hourglass_int8_predictor(cuda)
+    fp32.model.load_state_dict(pred.model.state_dict())
+    img = np.random.RandomState(1).uniform(-1, 1, (8, 64, 64)).astype(
+        np.float32)
+    fp = fp32.predict_normalized(img)
+    pred.quantize(img)
+    before = (int8_cuda.GEMM_LAUNCHES, decode_cuda.LAUNCHES,
+              encode_cuda.LAUNCHES)
+    q8 = pred.predict_normalized(img)
+    after = (int8_cuda.GEMM_LAUNCHES, decode_cuda.LAUNCHES,
+             encode_cuda.LAUNCHES)
+    assert [y - x for x, y in zip(before, after)] == [55, 1, 0]
+    with torch.no_grad():
+        maps = pred.model(torch.from_numpy(img).to(cuda)[:, None])
+    assert maps.is_contiguous()
+    assert np.isfinite(q8).all() and np.abs(q8 - fp).max() < 0.05
+
+
+def test_int8_gemm_past_2_31_elements(cuda):
+    """The int8 hourglass_1 stem's 3x3 GEMM at B = 256: 4,194,304 rows of
+    K = 576, an A of 2.4e9 bytes (M * K past 2**31)."""
+    M, K, N = 256 * 128 * 128, 576, 64
+    a = int8_codes(cuda, (M, K), 1)
+    b = int8_codes(cuda, (N, K), 2).t()
+    got = int8_cuda.int8_matmul_cuda(a, b)
+    assert torch.equal(got, int8.int8_matmul(a, b))
+
+
+@pytest.mark.parametrize("net", ["hourglass_1", "resnet_18"])
+def test_qat_on_the_card(cuda, net):
+    """quantize_qat on the card: per QAT step one encode, one decode and
+    one decode backward, no int8 kernel; the holdout scores both
+    candidates through the int8 kernels; a ruinous lr falls back to the
+    PTQ weights and BatchNorm statistics bit for bit."""
+    from awr_tpu_torch.config import hourglass_config, resnet_config
+
+    make = hourglass_config if net.startswith("hourglass") else resnet_config
+    cfg = make(img_size=64)
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num),
+                                torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(2)
+    tune = {"img": rng.uniform(-1, 1, (4, 64, 64)).astype(np.float32),
+            "jt_uvd": rng.uniform(-0.8, 0.8, (4, J, 3)).astype(np.float32)}
+    pred = Predictor(cfg, model, device=cuda)
+    pred.quantize(tune["img"])
+    layers = pred.quant
+    gemms = 55 if net.startswith("hourglass") else 20
+    deconvs = len(layers) - gemms
+    counters = lambda: (int8_cuda.GEMM_LAUNCHES,  # noqa: E731
+                        int8_cuda.DECONV_LAUNCHES, encode_cuda.LAUNCHES,
+                        decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES)
+    holdout = {"img": tune["img"], "jt_uvd": pred.predict_normalized(
+        tune["img"])}
+    before = counters()
+    losses = pred.quantize_qat([tune], steps=3, lr=1e-5,
+                               holdout_batches=[holdout])
+    after = counters()
+    assert [y - x for x, y in zip(before, after)] == [
+        2 * gemms, 2 * deconvs, 3 + 2, 3 + 2, 3]
+    assert np.isfinite(losses).all()
+
+    sd = {k: v.clone() for k, v in pred.model.state_dict().items()}
+    pred.quantize_qat([tune], steps=3, lr=50.0, holdout_batches=[holdout])
+    assert pred.qat_validation["fell_back"] is True
+    assert all(torch.equal(v, sd[k])
+               for k, v in pred.model.state_dict().items())
+
+
+def test_qat_conv_ignores_global_tf32(cuda):
+    """The QAT conv runs in IEEE float32 forward and backward whatever
+    ``torch.backends.cudnn.allow_tf32`` says, and leaves it as it was."""
+    from awr_tpu_torch.models.quant import QuantConv
+
+    g = torch.Generator(cuda).manual_seed(3)
+    x = torch.randn(8, 64, 32, 32, device=cuda, generator=g)
+    m = QuantConv(64, 64, 3, 1, 1).to(cuda)
+    m.mode = "qat"
+    m.act_scale.fill_(float(x.abs().max()) / 127)
+    out = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            xx = x.clone().requires_grad_()
+            y = m(xx)
+            y.square().sum().backward()
+            assert torch.backends.cudnn.allow_tf32 is tf32
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        out[tf32] = (y.detach(), xx.grad, m.weight.grad.clone())
+        m.weight.grad = None
+    for a, b in zip(out[False], out[True]):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_quantizers_match_the_cpu_bit_for_bit(cuda):
+    """Weight codes and scales, activation codes and a calibrated scale
+    are the same on the card as on the CPU: an int8 Predictor on the card
+    serves the CPU's integers (a scale one ulp off would move the
+    dequantized outputs and flip a code at a rounding tie)."""
+    from awr_tpu_torch.models import quant
+
+    rng = np.random.RandomState(5)
+    w = torch.from_numpy((rng.randn(256, 128, 3, 3)
+                          * rng.uniform(1e-3, 1.0, (256, 1, 1, 1)))
+                         .astype(np.float32))
+    x = torch.from_numpy(rng.randn(4, 128, 16, 16).astype(np.float32))
+    s = torch.tensor(0.0123, dtype=torch.float32)
+    amax = torch.from_numpy(rng.uniform(1e-4, 50.0, 100_000)
+                            .astype(np.float32))
+    cpu = (quant._quantize_weights(w, (1, 2, 3)), quant._quantize_acts(x, s),
+           quant._over_qmax(amax))
+    card = (quant._quantize_weights(w.to(cuda), (1, 2, 3)),
+            quant._quantize_acts(x.to(cuda), s.to(cuda)),
+            quant._over_qmax(amax.to(cuda)))
+    for got, want in zip(card[:2], cpu[:2]):
+        for g, c in zip(got, want):
+            assert torch.equal(g.cpu(), c)
+    assert torch.equal(card[2].cpu(), cpu[2])

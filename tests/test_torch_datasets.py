@@ -19,6 +19,7 @@ import pytest
 from test_icvl_msra import write_fake_hands17, write_fake_icvl, write_fake_msra
 from test_nyu_files import write_fake_nyu
 from torch_port_weights import IMG, random_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 import awr_tpu.data as jax_data
 import awr_tpu.data.nyu as jax_nyu

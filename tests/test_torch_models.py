@@ -7,11 +7,13 @@ import numpy as np
 import pytest
 import torch
 from torch_port_weights import IMG, flax_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.models.torch_import import import_posenet
 from awr_tpu_torch.config import Config, hourglass_config
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
+from awr_tpu_torch.models.quant import set_quant_mode
 from awr_tpu_torch.models.weights import (load_flax_variables,
                                           load_reference_state_dict)
 from awr_tpu_torch.serving import Predictor
@@ -90,18 +92,23 @@ def test_torch_default_init_is_seeded():
 
 
 def test_unported_options_raise():
-    """The int8 hourglass still raises.  bfloat16 is served now
-    (tests/test_torch_bf16*.py hold it against the JAX package): a bf16
-    Predictor runs; an unknown compute dtype raises."""
+    """bfloat16 and the int8 hourglass are served now
+    (tests/test_torch_bf16.py and tests/test_torch_quant.py hold them
+    against the JAX package): a bf16 Predictor runs, an int8 hourglass
+    Predictor quantizes its 55 convs and runs; an unknown compute dtype
+    and an unknown quant mode raise."""
     cfg = hourglass_config(img_size=IMG)
     pred = Predictor(cfg, build_model(cfg.net, cfg.jt_num), device="cpu")
-    with pytest.raises(NotImplementedError, match="int8 hourglass"):
-        pred.quantize(np.zeros((2, IMG, IMG), np.float32))
     bf16 = Predictor(cfg.replace(compute_dtype="bfloat16"),
                      pred.model.state_dict(), device="cpu")
     img = np.random.RandomState(0).uniform(-1, 1, (2, IMG, IMG)).astype(
         np.float32)
     assert np.isfinite(bf16.predict_normalized(img)).all()
+    pred.quantize(img)
+    assert len(pred.quant) == 55
+    assert np.isfinite(pred.predict_normalized(img)).all()
+    with pytest.raises(ValueError, match="mode"):
+        set_quant_mode(pred.model, "int4")
     with pytest.raises(ValueError, match="float16"):
         Config(compute_dtype="float16")
     cfg = hourglass_config(2)

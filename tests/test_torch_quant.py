@@ -1,7 +1,8 @@
 """The port's int8 path against the JAX package's: the plain int8 kernels
 against ``awr_tpu.ops.pallas_int8`` (interpret mode), the quant modules
-against ``awr_tpu.models.quant`` on identical operands, calibration, and
-``Predictor.quantize`` end to end.
+against ``awr_tpu.models.quant`` on identical operands (mode "qat" with
+its gradients too), calibration, and ``Predictor.quantize`` end to end on
+both backbones.
 
 Bars: the integer functions and the modules are exact (the modules to 1
 float32 ulp) on the same int8 operands.  Across a whole net the two
@@ -15,8 +16,10 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
-from torch_port_weights import resnet_variables
+from torch_port_weights import flax_variables, resnet_variables
+from torch_port_weights import one_thread  # noqa: F401
 
+from awr_tpu.config import hourglass_config as jax_hourglass_config
 from awr_tpu.config import resnet_config as jax_resnet_config
 from awr_tpu.models import build_model as jax_build_model
 from awr_tpu.models import quant as jq
@@ -24,10 +27,11 @@ from awr_tpu.ops.pallas_int8 import deconv4x4s2_int8 as jax_deconv
 from awr_tpu.ops.pallas_int8 import int8_matmul as jax_int8_matmul
 from awr_tpu.ops.pallas_int8 import prep_deconv_weights as jax_prep
 from awr_tpu.serving import Predictor as JaxPredictor
-from awr_tpu_torch.config import resnet_config
+from awr_tpu_torch.config import hourglass_config, resnet_config
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.data.synthetic import synthetic_frames
 from awr_tpu_torch.geometry import xyz2uvd_np
+from awr_tpu_torch.config import DTYPES
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models import quant
 from awr_tpu_torch.models.weights import (load_flax_quant,
@@ -167,6 +171,104 @@ def test_quant_conv_transpose_matches_jax():
         got = m(torch.from_numpy(x.transpose(0, 3, 1, 2)))
     np.testing.assert_array_max_ulp(got.numpy(), want.transpose(0, 3, 1, 2),
                                     maxulp=1)
+
+
+# --- mode "qat" against the JAX package's, forward and gradients
+
+# (layer, input scale): a 3x3 conv whose calibrated scale clips about 40 %
+# of the input codes at +-127, a 5x5 stem-like conv and the deconv with a
+# zero stored scale (the batch's max|x| / 127)
+QAT_LAYERS = [("conv3", 0.6), ("conv5", 0.0), ("deconv", 0.5),
+              ("deconv", 0.0)]
+# Relative to each tensor's max |value|.  Both sides form the same
+# float32 codes and scales (the quantizers are bit-equal) and convolve
+# them in float32 in another summation order: measured 1.3e-7 at most
+# (forward, input and weight gradients).  bfloat16 output: the same
+# float32 conv rounded once to bfloat16, where a sum within its float32
+# roundoff of a rounding boundary rounds the other way: one bfloat16 ulp,
+# 2**-8 of the value.
+QAT_RTOL_OF_MAX = {"float32": 1e-5, "bfloat16": 2.0 ** -8}
+
+
+def _qat_layers(kind, rng, dtype):
+    """(JAX module, params, port module, NHWC input): seeded operands."""
+    if kind == "deconv":
+        kern = (rng.randn(4, 4, 8, 16) * 0.1).astype(np.float32)
+        jmod = jq.QuantConvTranspose(8, mode="qat", dtype=dtype)
+        m = quant.QuantConvTranspose(16, 8, 4, 2, 1, bias=False)
+        params = {"kernel": kern}
+        w = kern.transpose(3, 2, 0, 1)
+        cin = 16
+    else:
+        k, cin = (3, 8) if kind == "conv3" else (5, 1)
+        kern = (rng.randn(k, k, cin, 16) * 0.2).astype(np.float32)
+        bias = (rng.randn(16) * 0.1).astype(np.float32)
+        jmod = jq.QuantConv(16, (k, k), padding=((k // 2,) * 2,) * 2,
+                            use_bias=True, mode="qat", dtype=dtype)
+        m = quant.QuantConv(cin, 16, k, 1, k // 2)
+        params = {"kernel": kern, "bias": bias}
+        w = kern.transpose(3, 2, 0, 1)
+        with torch.no_grad():
+            m.bias.copy_(torch.from_numpy(bias))
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(w))
+    x = rng.uniform(-1, 1, (2, 7, 9, cin)).astype(np.float32)
+    return jmod, params, m, x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind,scale", QAT_LAYERS)
+def test_qat_modules_match_jax(kind, scale, dtype):
+    """Forward, input and weight gradients of one layer in mode "qat":
+    the straight-through gradient is 1 at every input element, those
+    clipped at +-127 codes too (the JAX ``_ste`` has no clip mask), and
+    the layer leaves the caller's TF32 setting as it found it."""
+    rng = np.random.RandomState(len(kind) * 10 + int(scale * 10))
+    jdt = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}[dtype]
+    jmod, params, m, x = _qat_layers(kind, rng, jdt)
+    s = np.float32(scale * np.abs(x).max() / 127)
+    y_shape = jax.eval_shape(lambda: jmod.apply(
+        {"params": params, "quant": {"act_scale": s}}, jnp.asarray(x))).shape
+    g = rng.randn(*y_shape).astype(np.float32)
+
+    def f(xx, kk):
+        p = dict(params, kernel=kk)
+        return jmod.apply({"params": p, "quant": {"act_scale": s}}, xx)
+    y, vjp = jax.vjp(f, jnp.asarray(x), jnp.asarray(params["kernel"]))
+    gx, gk = vjp(jnp.asarray(g, y.dtype))
+
+    m.compute_dtype = DTYPES[dtype]
+    m.mode = "qat"
+    with torch.no_grad():
+        m.act_scale.fill_(float(s))
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2)).requires_grad_()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = m(xt)
+        got.backward(torch.from_numpy(g.transpose(0, 3, 1, 2)).to(got.dtype))
+        assert torch.backends.cudnn.allow_tf32 is True
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    assert got.dtype == DTYPES[dtype]
+    perm = (3, 2, 0, 1)
+    rtol = QAT_RTOL_OF_MAX[dtype]
+    for name, a, b in (
+            ("forward", got.detach().float().numpy(),
+             np.asarray(y, np.float32).transpose(0, 3, 1, 2)),
+            ("input grad", xt.grad.numpy(),
+             np.asarray(gx, np.float32).transpose(0, 3, 1, 2)),
+            ("weight grad", m.weight.grad.numpy(),
+             np.asarray(gk, np.float32).transpose(perm))):
+        scale_ = np.abs(b).max()
+        assert scale_ > 0, name
+        np.testing.assert_allclose(a, b, rtol=0, atol=rtol * scale_,
+                                   err_msg=name)
+    # the clipped inputs get the gradient of the identity too
+    s_in = s if s > 0 else np.abs(x).max() / 127
+    clipped = (np.abs(x) / s_in > 127.5).transpose(0, 3, 1, 2)
+    assert clipped.any() == (scale > 0)
+    if clipped.any():
+        assert np.abs(xt.grad.numpy()[clipped]).max() > 0
 
 
 @pytest.mark.parametrize("k,stride,cin,cout", CONVS)
@@ -329,7 +431,66 @@ def test_set_int8_checks_layer_names():
     with pytest.raises(KeyError, match="missing"):
         quant.set_int8(model, dict(list(scales.items())[1:]))
     with pytest.raises(ValueError, match="mode"):
-        quant.set_quant_mode(model, "qat")
+        quant.set_quant_mode(model, "int4")
     quant.set_int8(model, scales)
     assert all(torch.equal(m.act_scale, torch.tensor(0.01))
                for m in quant.quant_layers(model).values())
+
+
+# --- the int8 hourglass: every ConvBlock conv but the merges' quantized
+
+# Normalized-uvd joint tolerance of the int8 hourglass_1 Predictor against
+# the JAX one, for INT8_ATOL's reason: the two sides' BatchNorms round
+# differently, and a code on a rounding boundary flips by one step; at
+# 16 x 16 maps each flip reaches a large share of the next layers, so the
+# differences grow down the net's 55 int8 convs.  Measured on the joints
+# (one calibration batch of 32 crops): max 0.0092, mean 5.1e-4 with each
+# side's own scales, max 0.0092, mean 2.3e-4 with the JAX scales, against
+# an int8-vs-float32 drift of max 0.039, mean 3.3e-3; a one-ulp change of
+# the input moves the port's own joints by 2.8e-6.
+HG_INT8_ATOL = 0.02
+HG_INT8_MEAN = 2e-3
+
+
+@pytest.fixture(scope="module")
+def hourglass1():
+    return flax_variables(1, seed=4)[1]
+
+
+def test_hourglass_predictor_quantize_matches_jax(hourglass1, crops):
+    jax_pred = JaxPredictor(
+        jax_hourglass_config(img_size=IMG, use_pallas=False), hourglass1)
+    cfg = hourglass_config(img_size=IMG)
+    pred = Predictor(cfg, load_flax_variables(
+        build_model(cfg.net, cfg.jt_num), hourglass1), device="cpu")
+    fp = pred.predict_normalized(crops[:8])
+    sd_keys = list(pred.model.state_dict())
+
+    jax_pred.quantize(crops[:32])
+    pred.quantize(crops[:32])
+    assert len(pred.quant) == len(quant.quant_layers(pred.model)) == 55
+    assert "outs_1.0" not in pred.quant
+    want = jax_pred.predict_normalized(crops[:8])
+    got = pred.predict_normalized(crops[:8])
+    np.testing.assert_allclose(got, want, rtol=0, atol=HG_INT8_ATOL)
+    assert np.abs(got - want).mean() < HG_INT8_MEAN
+    assert 0 < np.abs(got - fp).max() < 0.05
+    assert list(pred.model.state_dict()) == sd_keys
+    # the map leaves the int8 model contiguous, as the CUDA decode takes it
+    with torch.no_grad():
+        maps = pred.model(torch.from_numpy(crops[:8])[:, None])
+    assert maps.is_contiguous() and maps[-1].is_contiguous()
+
+    # the JAX scales carried across
+    pred.quant = load_flax_quant(pred.model, jax_pred.quant)
+    assert len(pred.quant) == 55
+    pred._switch_int8()
+    got = pred.predict_normalized(crops[:8])
+    np.testing.assert_allclose(got, want, rtol=0, atol=HG_INT8_ATOL)
+    assert np.abs(got - want).mean() < HG_INT8_MEAN
+
+    fresh = load_reference_state_dict(build_model("hourglass_1", 14),
+                                      pred.model.state_dict())
+    assert all(m.mode == "off" for m in quant.quant_layers(fresh).values())
+    with pytest.raises(KeyError):
+        load_flax_quant(fresh, {"pre_conv": jax_pred.quant["pre_conv"]})

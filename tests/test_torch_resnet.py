@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_weights import resnet_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.models.common import max_pool_torch as jax_max_pool_torch
 from awr_tpu.models.torch_import import import_resnet_deconv

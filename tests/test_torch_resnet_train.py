@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_weights import resnet_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.models import build_model as jax_build_model
 from awr_tpu.models.torch_import import import_resnet_deconv

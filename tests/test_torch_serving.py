@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_weights import flax_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.config import hourglass_config as jax_hourglass_config
 from awr_tpu.serving import Predictor as JaxPredictor

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from torch_port_weights import IMG, random_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.config import Config as JaxConfig
 from awr_tpu.data import device as jax_device

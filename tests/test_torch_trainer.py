@@ -21,6 +21,7 @@ import pytest
 import torch
 from test_nyu_files import write_fake_nyu
 from torch_port_weights import IMG, random_variables
+from torch_port_weights import one_thread  # noqa: F401
 
 import awr_tpu.data.device as jax_device
 from awr_tpu.config import Config as JaxConfig

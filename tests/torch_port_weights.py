@@ -4,10 +4,24 @@ parity tests."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from awr_tpu.models import build_model as jax_build_model
 
 IMG = 32  # F = 16: the depth-4 hourglass needs F % 16 == 0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """PyTorch on one thread while a test file that imports this fixture
+    runs: its tensors are tiny, and the suite's workers share the
+    machine's cores (on eight cores, test_torch_train.py alone takes 77 s
+    on one thread and 95 s on PyTorch's default threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def flax_variables(nstack, seed=0):
