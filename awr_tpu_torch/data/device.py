@@ -95,13 +95,25 @@ def normalize(img, depth_max, center_z, cube_z):
     return (img - center_z) / (cube_z / 2.0)
 
 
+def upload(a, device) -> torch.Tensor:
+    """A host array on ``device``.  On a GPU it goes through pinned memory
+    and a ``non_blocking`` copy on the current stream, so the host does not
+    wait for the work already queued there (a copy from pageable memory
+    does).  The pinned block comes from PyTorch's caching host allocator,
+    which keeps it until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def crop_param_tensors(centers_uvd, cubes, paras, dsize: int, device):
     """:func:`crop_params_np` (float64 on the host) as tensors on
     ``device``: the (B,) bounds, clip depths and paste geometry, and the
     (B, 3, 3) float32 crop affine under "M"."""
     p_np = crop_params_np(np.asarray(centers_uvd), np.asarray(cubes),
                           np.asarray(paras), dsize)
-    return {k: torch.from_numpy(v).to(device) for k, v in p_np.items()}
+    return {k: upload(v, device) for k, v in p_np.items()}
 
 
 def crop_normalize_batch(imgs, centers_uvd, cubes, paras, dsize: int):
@@ -111,6 +123,7 @@ def crop_normalize_batch(imgs, centers_uvd, cubes, paras, dsize: int):
       imgs: (B, H0, W0) float32 raw mm depth, a tensor on the device the
         crop runs on.
       centers_uvd: (B, 3) host array; cubes: (B, 3); paras: intrinsics.
+        They go to the device without a host sync (:func:`upload`).
     Returns:
       (B, dsize, dsize) float32 normalized depth on ``imgs.device``, and
       the (B, 3, 3) crop affine M as a host float32 array.
@@ -120,12 +133,10 @@ def crop_normalize_batch(imgs, centers_uvd, cubes, paras, dsize: int):
     p_np = crop_params_np(centers_uvd, cubes, np.asarray(paras), dsize)
     M = p_np.pop("M")
     dev = imgs.device
-    p = {k: torch.from_numpy(v).to(dev) for k, v in p_np.items()}
+    p = {k: upload(v, dev) for k, v in p_np.items()}
     B = imgs.shape[0]
-    center_z = torch.from_numpy(
-        centers_uvd[:, 2].astype(np.float32)).to(dev).view(B, 1, 1)
-    cube_z = torch.from_numpy(
-        cubes[:, 2].astype(np.float32)).to(dev).view(B, 1, 1)
+    center_z = upload(centers_uvd[:, 2].astype(np.float32), dev).view(B, 1, 1)
+    cube_z = upload(cubes[:, 2].astype(np.float32), dev).view(B, 1, 1)
     crop = _crop_gather(imgs, p, dsize)
     depth_max = crop.amax(dim=(1, 2), keepdim=True)
     return normalize(crop, depth_max, center_z, cube_z), M

@@ -7,8 +7,9 @@ launcher.  It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 host C++ compiler (``c++`` or ``g++`` on PATH) builds it the same way.
 The hash covers the source, for a ``.cu`` every header under ``csrc/``
 (``*.cuh``), and the flags, so an edited source or header is rebuilt.
-A missing compiler or a failed build raises.  Nothing here runs when the
-module is imported.
+A missing compiler or a failed build raises.  Builds are serialized by
+a module lock: the server's dispatcher thread may load a kernel while
+another thread does.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -28,6 +30,11 @@ BUILD_DIR = _PKG.parent / "build" / "awr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# one build at a time in this process: two threads that both find a
+# library missing would otherwise run two compilers onto one temporary
+# file (it is named by the process), and lru_cache does not serialize the
+# first calls of ``load``
+_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -78,28 +85,30 @@ def build(names) -> dict:
     compiler process each).  Returns ``{name: {"seconds", "ptxas"}}``
     for what was compiled (``ptxas``: the compiler's output); raises if
     any compile fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name in names:
-        out = library_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        jobs[name] = (subprocess.Popen(_command(name, tmp),
-                                       stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, out, time.perf_counter())
-    report, failed = {}, []
-    for name, (proc, tmp, out, t0) in jobs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        os.replace(tmp, out)  # atomic: a concurrent build never loads half a file
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
-    if failed:
-        raise RuntimeError("build failed for " + "\n".join(failed))
-    return report
+    with _LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = {}
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+            proc = subprocess.Popen(_command(name, tmp),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, tmp, out, time.perf_counter())
+        report, failed = {}, []
+        for name, (proc, tmp, out, t0) in jobs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name}:\n{log}")
+                continue
+            # atomic: a concurrent build never loads half a file
+            os.replace(tmp, out)
+            report[name] = {"seconds": time.perf_counter() - t0, "ptxas": log}
+        if failed:
+            raise RuntimeError("build failed for " + "\n".join(failed))
+        return report
 
 
 @functools.lru_cache(maxsize=None)

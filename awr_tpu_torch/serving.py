@@ -204,8 +204,17 @@ class Predictor:
         """Enqueue crop, forward and decode on the device without waiting
         for them; returns ``finalize() -> (B, J, 3)``, which waits and
         de-normalizes.  The raw batch is padded to its bucket before the
-        crop."""
-        imgs = np.asarray(imgs, np.float32)
+        crop.
+
+        On a GPU nothing here waits for the device: the uploads go through
+        pinned memory with ``non_blocking`` copies, and the joints come back
+        the same way, into a pinned host tensor, before an event recorded
+        on the stream.  ``finalize`` waits on that event alone, so a second
+        call's work, enqueued after it, never delays the first's result
+        (the overlap :mod:`awr_tpu_torch.batching` pipelines on)."""
+        # contiguous: ``torch.from_numpy`` refuses a view with negative
+        # strides, which the pad no longer copies away on a GPU
+        imgs = np.ascontiguousarray(imgs, np.float32)
         centers_xyz = np.asarray(centers_xyz, np.float64)
         B = len(imgs)
         if B == 0:
@@ -215,19 +224,43 @@ class Predictor:
         cubes = np.asarray(cubes)
         centers_uvd = xyz2uvd_np(centers_xyz, self.paras, self.flip)
         bucket = self._bucket(B)
-        imgs_dev = torch.from_numpy(self._pad(imgs, bucket)).to(self.device)
         img_n, M_p = crop_normalize_batch(
-            imgs_dev, self._pad(centers_uvd, bucket),
-            self._pad(cubes, bucket), np.asarray(self.paras),
-            self.cfg.img_size)
-        out_dev = self._infer(img_n)
+            self._frames_on_device(imgs, bucket),
+            self._pad(centers_uvd, bucket), self._pad(cubes, bucket),
+            np.asarray(self.paras), self.cfg.img_size)
+        out_dev = self._infer(img_n)[:B]
         M = M_p[:B]
+        if self.device.type != "cuda":
+            def finalize() -> np.ndarray:
+                return self.denormalize(out_dev.numpy(), centers_xyz, M,
+                                        cubes)
+            return finalize
+
+        out_host = torch.empty(out_dev.shape, dtype=out_dev.dtype,
+                               pin_memory=True)
+        out_host.copy_(out_dev, non_blocking=True)
+        copied = torch.cuda.Event()
+        copied.record(torch.cuda.current_stream(self.device))
 
         def finalize() -> np.ndarray:
-            pred = out_dev[:B].cpu().numpy()
-            return self.denormalize(pred, centers_xyz, M, cubes)
+            copied.synchronize()
+            return self.denormalize(out_host.numpy(), centers_xyz, M, cubes)
 
         return finalize
+
+    def _frames_on_device(self, imgs: np.ndarray, bucket: int):
+        """The raw frames padded to ``bucket`` rows (:meth:`_pad`) on the
+        device; on a GPU padded straight into a pinned buffer (by
+        PyTorch's copy, which splits a large copy over its threads) and
+        copied ``non_blocking``."""
+        if self.device.type != "cuda":
+            return torch.from_numpy(self._pad(imgs, bucket))
+        src = torch.from_numpy(imgs)
+        host = torch.empty((bucket,) + imgs.shape[1:], dtype=torch.float32,
+                           pin_memory=True)
+        host[:len(imgs)].copy_(src)
+        host[len(imgs):].copy_(src[-1:].expand_as(host[len(imgs):]))
+        return host.to(self.device, non_blocking=True)
 
     def denormalize(self, pred, centers_xyz, M, cubes) -> np.ndarray:
         """Normalized (B, J, 3) uvd -> camera (u px, v px, d mm)."""

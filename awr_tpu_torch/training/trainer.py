@@ -156,12 +156,12 @@ class Trainer:
 
     def _upload(self, a) -> torch.Tensor:
         """A host array on the device: through pinned memory and a
-        ``non_blocking`` copy on the steps' stream on a GPU."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        ``non_blocking`` copy on the steps' stream on a GPU
+        (:func:`~awr_tpu_torch.data.device.upload`)."""
         if self._stream is None:
-            return t
+            return torch.from_numpy(np.ascontiguousarray(a))
         with torch.cuda.stream(self._stream):
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return data_device.upload(a, self.device)
 
     @staticmethod
     def _raw(ds) -> bool:

@@ -79,7 +79,23 @@ float32, TF32 off (then bf16, phase ``bf16``):
   launch counts, device time beside the float32 step's); the training
   CLI in bf16 (``--synthetic --data-mode raw``, 3 epochs: frames/s of
   the second, idle share of the third); then profiles of both families'
-  bf16 train steps and of resnet_18's float32 one.
+  bf16 train steps and of resnet_18's float32 one;
+- server: ``Predictor.predict_async`` of hourglass_1 at B = 256 twice in
+  a row (B's dispatch must not wait for A's device work, and A's
+  ``finalize`` must return while B's work runs); an in-process
+  ``awr_tpu_torch.server.AWRServer`` (``/healthz``; ``/predict`` and
+  ``/predict_batch`` as JSON and base64 against ``Predictor.predict``),
+  the same for an int8 resnet_18 under bf16 (the server CLI's defaults);
+  the server CLI in a process of its own (``--pth`` and ``--int8-calib``
+  written here): ``/healthz`` reports int8 and its joints equal the
+  in-process int8 Predictor's; a closed-loop load (32, then 4, client
+  threads in another process posting single 480x640 ``img_b64`` frames
+  for 10 s:
+  frames/s, p50 and p99, frames a dispatch, the card's idle share over a
+  profiled window); priming at 480x640 and a 64-request burst against a
+  25 ms deadline and an 8-frame queue (503s with Retry-After, then a
+  plain request serves).  The decode launches equal the servers'
+  dispatches; the int8 kernels launch 20 and 3 times a dispatch.
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -91,13 +107,16 @@ the port only.
 
 from __future__ import annotations
 
+import base64
 import contextlib
 import copy
+import http.client
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -105,6 +124,7 @@ import torch
 import torch.nn.functional as F
 
 from awr_tpu_torch import kernels
+from awr_tpu_torch.benchmarks.predict_latency import predict_ms
 from awr_tpu_torch.config import (DATASET_PARAS, DTYPES, hourglass_config,
                                   resnet_config)
 from awr_tpu_torch.data import native_decode
@@ -126,6 +146,7 @@ from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
                                           offset2joint_softmax_backward,
                                           offset2joint_softmax_stats)
+from awr_tpu_torch.server import AWRServer
 from awr_tpu_torch.serving import Predictor
 from awr_tpu_torch.training import evaluate as evaluate_cli
 from awr_tpu_torch.training import train as train_cli
@@ -274,6 +295,28 @@ QAT_JOINT_ATOL = 0.02
 # the same float32 convs (TF32 is forced off inside), so equal up to cuDNN
 # choosing another algorithm; TF32 moves a conv by ~1e-3 of its scale
 QAT_TF32_RTOL_OF_MAX = 1e-5
+# The server phase: the predict_async contract at B = 256 (hourglass_1
+# float32: about 212 ms of device work a request), B's dispatch held to
+# under half of A's device time; the closed-loop load (client threads in a
+# separate process, single 480x640 img_b64 frames; 32 threads, then 4 to
+# see what contention costs) and its profiled window; the overload burst against a small deadline and queue; the
+# in-process int8 request (the server CLI's defaults: resnet_18, bf16).
+# HTTP joints against Predictor.predict on the same frames: the JAX
+# package's batching bar (tests/test_batching.py:59).  The server CLI's
+# int8 joints against an int8 Predictor built the same way in this
+# process: the same code, weights and calibration on the same card.
+SERVER_ASYNC_BATCH = 256
+SERVER_ASYNC_HOST_SHARE = 0.5
+SERVER_LOAD_S = 10.0
+SERVER_LOAD_CLIENTS = (32, 4)
+SERVER_PROFILE_AT_S, SERVER_PROFILE_S = 3.0, 3.0
+SERVER_BURST = 64
+SERVER_BURST_DEADLINE_MS = 25.0
+SERVER_BURST_MAX_QUEUE = 8
+SERVER_RTOL, SERVER_ATOL = 1e-4, 1e-3
+SERVER_CLI_ATOL = 1e-3
+SERVER_CLI_START_S = 300.0
+SERVER_INT8_FRAMES = 8
 # (HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s) from
 # NVIDIA's data sheets; dense int8 is half the with-sparsity figure
 PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
@@ -837,7 +880,7 @@ def phase_time(cfg, pred, frames, centers, bw, flops, train, raw, p):
     for B in (1, 32, 256):
         f = np.resize(frames, (B,) + frames.shape[1:])
         c = np.resize(centers, (B, 3))
-        ms = host_ms(lambda: pred.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
+        ms = predict_ms(pred, f, c, {1: 20, 32: 10, 256: 5}[B])["median"]
         out[f"predict_ms_b{B}"] = ms
         out[f"predict_fps_b{B}"] = B / ms * 1e3
     # device time of forward + decode on normalized crops
@@ -932,7 +975,7 @@ def phase_time_resnet(pred, pred_q, crops, frames, centers, bw, int8_ops):
         for B in (1, 32, 256):
             f = np.resize(frames, (B,) + frames.shape[1:])
             c = np.resize(centers, (B, 3))
-            ms = host_ms(lambda: p.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
+            ms = predict_ms(p, f, c, {1: 20, 32: 10, 256: 5}[B])["median"]
             out[f"{name}_predict_ms_b{B}"] = ms
             out[f"{name}_predict_fps_b{B}"] = B / ms * 1e3
         for B in (8, 32, 256):
@@ -1684,7 +1727,7 @@ def request_times(pred, fp32, frames, centers, crops):
         f = np.resize(frames, (B,) + frames.shape[1:])
         c = np.resize(centers, (B, 3))
         torch.cuda.reset_peak_memory_stats()
-        ms = host_ms(lambda: pred.predict(f, c), {1: 20, 32: 10, 256: 5}[B])
+        ms = predict_ms(pred, f, c, {1: 20, 32: 10, 256: 5}[B])["median"]
         bucket = pred._bucket(B)
         img = torch.from_numpy(np.resize(crops, (bucket,) + crops.shape[1:]))
         out[f"b{B}"] = {"predict_ms": ms, "predict_fps": B / ms * 1e3,
@@ -2153,6 +2196,452 @@ def phase_qat(frames, centers):
     return launches
 
 
+# The closed-loop clients of the server phase, run in a process of their
+# own (stdlib and numpy only): argv port, seconds, threads, frames.npy,
+# centers.npy.  Each thread posts one img_b64 frame at a time, on a new
+# connection (the server speaks HTTP/1.0); prints {"replies": [[end s,
+# latency s, connect s, status]], "t0": start}.
+LOAD_CLIENT = r"""
+import base64, http.client, json, sys, threading, time
+import numpy as np
+port, seconds, n = int(sys.argv[1]), float(sys.argv[2]), int(sys.argv[3])
+frames, centers = np.load(sys.argv[4]), np.load(sys.argv[5])
+bodies = [json.dumps({"img_b64": base64.b64encode(
+    np.ascontiguousarray(f, "<f4").tobytes()).decode(),
+    "shape": list(f.shape), "center_xyz": c.tolist()}).encode()
+    for f, c in zip(frames, centers)]
+replies, lock = [], threading.Lock()
+t0 = time.perf_counter()
+stop = t0 + seconds
+def client(k):
+    i = k
+    while time.perf_counter() < stop:
+        t = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+        conn.connect()
+        t_conn = time.perf_counter() - t
+        conn.request("POST", "/predict", bodies[i % len(bodies)],
+                     {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        r.read()
+        conn.close()
+        with lock:
+            replies.append((time.perf_counter() - t0,
+                            time.perf_counter() - t, t_conn, r.status))
+        i += n
+threads = [threading.Thread(target=client, args=(k,)) for k in range(n)]
+for th in threads:
+    th.start()
+for th in threads:
+    th.join()
+print(json.dumps({"replies": replies, "t0": t0}))
+"""
+
+
+def http_json(port, path, obj=None, timeout=120):
+    """(status, headers, parsed body) of a GET (``obj`` None) or POST."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if obj is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, json.dumps(obj),
+                         {"Content-Type": "application/json"})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), json.loads(r.read())
+    finally:
+        conn.close()
+
+
+def b64(a) -> str:
+    return base64.b64encode(np.ascontiguousarray(a, "<f4").tobytes()).decode()
+
+
+def http_joints(port, path, obj):
+    status, _, body = http_json(port, path, obj)
+    if status != 200:
+        raise AssertionError(f"{path}: {status} {body}")
+    return np.asarray(body["joints_uvd"], np.float32)
+
+
+def async_contract(pred, frames, centers):
+    """``predict_async`` at B = SERVER_ASYNC_BATCH: A and then B
+    dispatched back to back.  B's dispatch must take under
+    SERVER_ASYNC_HOST_SHARE of A's device time, A's ``finalize`` must
+    return while B's work still runs, and both must give the joints of a
+    blocking ``predict``.  Also times what the port did before: a
+    pageable upload of the same frames behind A's work."""
+    n = SERVER_ASYNC_BATCH
+    reps = -(-n // len(frames))
+    imgs = np.tile(frames, (reps, 1, 1))[:n]
+    cs = np.tile(centers, (reps, 1))[:n]
+    want = pred.predict(imgs, cs)
+    for _ in range(2):  # the pinned blocks of two requests in flight
+        fa, fb = pred.predict_async(imgs, cs), pred.predict_async(imgs, cs)
+        fa(), fb()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    a_end = torch.cuda.Event(enable_timing=True)
+    b_end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fa = pred.predict_async(imgs, cs)
+    a_end.record()
+    t1 = time.perf_counter()
+    fb = pred.predict_async(imgs, cs)
+    t2 = time.perf_counter()
+    b_end.record()
+    out_a = fa()
+    t3 = time.perf_counter()
+    b_running = not b_end.query()
+    out_b = fb()
+    t4 = time.perf_counter()
+    a_device_ms = start.elapsed_time(a_end)
+    # the upload as the port made it before: from pageable memory, behind
+    # a request's work on the stream
+    padded = np.ascontiguousarray(imgs)
+    fa = pred.predict_async(imgs, cs)
+    t5 = time.perf_counter()
+    torch.from_numpy(padded).to("cuda")
+    t6 = time.perf_counter()
+    fa()
+    res = {"batch": n, "a_device_ms": a_device_ms,
+           "a_dispatch_host_ms": (t1 - t0) * 1e3,
+           "b_dispatch_host_ms": (t2 - t1) * 1e3,
+           "a_finalize_returned_ms": (t3 - t0) * 1e3,
+           "b_finalize_returned_ms": (t4 - t0) * 1e3,
+           "a_and_b_device_ms": start.elapsed_time(b_end),
+           "b_running_when_a_returned": b_running,
+           "pageable_upload_behind_a_ms": (t6 - t5) * 1e3,
+           "host_share_bar": SERVER_ASYNC_HOST_SHARE,
+           "a_equal": bool(np.array_equal(out_a, want)),
+           "b_equal": bool(np.array_equal(out_b, want))}
+    if not res["b_dispatch_host_ms"] < SERVER_ASYNC_HOST_SHARE * a_device_ms:
+        raise AssertionError(f"B's predict_async waited for A: {res}")
+    if not b_running:
+        raise AssertionError(f"finalize(A) waited for B's work: {res}")
+    if not (res["a_equal"] and res["b_equal"]):
+        raise AssertionError(f"predict_async joints differ: {res}")
+    return res
+
+
+def server_correctness(pred, frames, centers, want1, want8):
+    """/healthz, then /predict and /predict_batch as JSON and base64
+    against ``Predictor.predict`` of the same frames; returns the
+    server's dispatches and the largest difference."""
+    with AWRServer(pred, port=0).start() as srv:
+        status, _, h = http_json(srv.port, "/healthz")
+        if status != 200 or h["int8"] is not False or h["net"] != "hourglass_1":
+            raise AssertionError(f"healthz: {status} {h}")
+        got = {
+            "predict_json": (http_joints(srv.port, "/predict", {
+                "img": frames[0].tolist(),
+                "center_xyz": centers[0].tolist()}), want1),
+            "predict_b64": (http_joints(srv.port, "/predict", {
+                "img_b64": b64(frames[0]), "shape": list(frames[0].shape),
+                "center_xyz": centers[0].tolist()}), want1),
+            "predict_batch_json": (http_joints(srv.port, "/predict_batch", {
+                "imgs": frames[:2].tolist(),
+                "centers_xyz": centers[:2].tolist()}), want8[:2]),
+            "predict_batch_b64": (http_joints(srv.port, "/predict_batch", {
+                "imgs_b64": b64(frames[:8]), "shape": list(frames[:8].shape),
+                "centers_xyz": centers[:8].tolist()}), want8),
+        }
+        err = {k: float(np.abs(g - w).max()) for k, (g, w) in got.items()}
+        for k, (g, w) in got.items():
+            if g.shape != w.shape or not np.allclose(g, w, rtol=SERVER_RTOL,
+                                                     atol=SERVER_ATOL):
+                raise AssertionError(f"{k}: HTTP joints differ from "
+                                     f"Predictor.predict by {err[k]}")
+        return srv.batcher.n_dispatches, err
+
+
+def host_costs(pred, frames, centers):
+    """Host ms, alone on this thread (medians): one single-frame img_b64
+    request's JSON and base64 decode, its reply's encoding, and the
+    dispatcher's ``predict_async`` of 1 and of 8 frames (bucket 8; its
+    ``finalize`` untimed); and the interpreter's switch interval."""
+    body = json.dumps({"img_b64": b64(frames[0]),
+                       "shape": list(frames.shape[1:]),
+                       "center_xyz": centers[0].tolist()}).encode()
+    reply = {"joints_uvd": np.zeros((14, 3)).tolist()}
+
+    def parse():
+        obj = json.loads(body)
+        np.frombuffer(base64.b64decode(obj["img_b64"]),
+                      dtype="<f4").reshape(obj["shape"])
+
+    def dispatch_ms(n):
+        times = []
+        for _ in range(12):
+            t = time.perf_counter()
+            fin = pred.predict_async(frames[:n], centers[:n])
+            times.append((time.perf_counter() - t) * 1e3)
+            fin()
+        return float(np.median(times[2:]))
+
+    return {"body_bytes": len(body),
+            "parse_ms": host_ms(parse, 20),
+            "reply_ms": host_ms(lambda: json.dumps(reply).encode(), 20),
+            "dispatch_1_ms": dispatch_ms(1), "dispatch_8_ms": dispatch_ms(8),
+            "switch_interval_ms": sys.getswitchinterval() * 1e3}
+
+
+def closed_loop(pred, frames, centers, tmp, clients):
+    """``clients`` threads of another process post single img_b64 frames
+    for SERVER_LOAD_S; a CUDA profile over SERVER_PROFILE_S of it, with
+    this process's CPU time over the same window.  Returns the served
+    numbers, the dispatcher's host time a dispatch, and the server's
+    dispatches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    np.save(os.path.join(tmp, "frames.npy"), frames)
+    np.save(os.path.join(tmp, "centers.npy"), centers)
+    host_s = []
+    dispatch = pred.predict_async
+
+    def timed_dispatch(*a, **kw):
+        t = time.perf_counter()
+        fin = dispatch(*a, **kw)
+        host_s.append(time.perf_counter() - t)
+        return fin
+
+    pred.predict_async = timed_dispatch
+    try:
+        with AWRServer(pred, port=0).start() as srv:
+            proc = subprocess.Popen(
+                [sys.executable, "-c", LOAD_CLIENT, str(srv.port),
+                 str(SERVER_LOAD_S), str(clients),
+                 os.path.join(tmp, "frames.npy"),
+                 os.path.join(tmp, "centers.npy")],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            try:
+                time.sleep(SERVER_PROFILE_AT_S)
+                d0, f0 = srv.batcher.n_dispatches, srv.batcher.n_frames
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                prof.start()
+                t0, cpu0 = time.perf_counter(), time.process_time()
+                time.sleep(SERVER_PROFILE_S)
+                torch.cuda.synchronize()
+                window_ms = (time.perf_counter() - t0) * 1e3
+                cpu_ms = (time.process_time() - cpu0) * 1e3
+                prof.stop()
+                d1, f1 = srv.batcher.n_dispatches, srv.batcher.n_frames
+                out, err = proc.communicate(timeout=SERVER_LOAD_S + 120)
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+            if proc.returncode != 0:
+                raise AssertionError(f"load clients failed: {err}")
+            snap = srv.batcher.service_model.snapshot()
+            dispatches = srv.batcher.n_dispatches
+    finally:
+        del pred.predict_async
+    replies = json.loads(out)["replies"]
+    codes = sorted({r[3] for r in replies})
+    lat = np.array([r[1] for r in replies]) * 1e3
+    conn = np.array([r[2] for r in replies]) * 1e3
+    span = max(r[0] for r in replies)
+    busy = busy_ms(prof)
+    device_events = sum(1 for e in prof.events()
+                        if e.device_type == torch.autograd.DeviceType.CUDA)
+    res = {"clients": clients, "seconds": SERVER_LOAD_S,
+           "replies": len(replies), "status_codes": codes,
+           "served_fps": len(replies) / span,
+           "p50_ms": float(np.percentile(lat, 50)),
+           "p99_ms": float(np.percentile(lat, 99)),
+           "connect_p50_ms": float(np.percentile(conn, 50)),
+           "connect_p99_ms": float(np.percentile(conn, 99)),
+           "connects_over_900ms": int((conn > 900).sum()),
+           "window": {"ms": window_ms, "device_busy_ms": busy,
+                      "idle_share": 1.0 - busy / window_ms,
+                      "process_cpu_share": cpu_ms / window_ms,
+                      "dispatches": d1 - d0,
+                      "served_fps": (f1 - f0) / (window_ms / 1e3),
+                      "frames_per_dispatch": (f1 - f0) / max(d1 - d0, 1),
+                      "device_events_per_dispatch":
+                          device_events / max(d1 - d0, 1),
+                      "gaps": device_gaps(prof)},
+           "dispatch_host_ms": {
+               "median": float(np.median(host_s) * 1e3),
+               "p90": float(np.percentile(host_s, 90) * 1e3),
+               "count": len(host_s)},
+           "service_model_ms": {f"{b}@{sh[0]}x{sh[1]}": {
+               "p50": st["p50_s"] * 1e3, "p90": st["p90_s"] * 1e3,
+               "n": st["n"]} for (b, sh), st in snap.items()}}
+    if codes != [200]:
+        raise AssertionError(f"closed-loop load: status codes {codes}")
+    return res, dispatches
+
+
+def overload_and_priming(pred, frames, centers):
+    """Priming of a deadline stack at (480, 640), then SERVER_BURST
+    threads posting one frame each at once against
+    SERVER_BURST_DEADLINE_MS and SERVER_BURST_MAX_QUEUE: some replies 503
+    with Retry-After, shed + rejected > 0, and a plain request after the
+    burst serves.  Returns the numbers and the server's dispatches."""
+    with AWRServer(pred, port=0, deadline_ms=SERVER_BURST_DEADLINE_MS,
+                   max_queue=SERVER_BURST_MAX_QUEUE).start() as srv:
+        # before any client knows the port: no traffic interleaves
+        snap = srv.batcher.prime_service_model(frames.shape[1:])
+        prime = {"p90_ms": {b: v * 1e3 for b, v in sorted(snap.items())},
+                 "stats": srv.batcher.prime_stats}
+        gate = threading.Barrier(SERVER_BURST)
+        replies = [None] * SERVER_BURST
+
+        def client(i):
+            obj = {"img_b64": b64(frames[i % len(frames)]),
+                   "shape": list(frames.shape[1:]),
+                   "center_xyz": centers[i % len(frames)].tolist()}
+            gate.wait(60)
+            status, headers, body = http_json(srv.port, "/predict", obj)
+            replies[i] = (status, headers.get("Retry-After"),
+                          body.get("retryable"))
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVER_BURST)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        after = http_joints(srv.port, "/predict", {
+            "img_b64": b64(frames[0]), "shape": list(frames.shape[1:]),
+            "center_xyz": centers[0].tolist()})
+        res = {"burst": SERVER_BURST,
+               "deadline_ms": SERVER_BURST_DEADLINE_MS,
+               "max_queue": SERVER_BURST_MAX_QUEUE,
+               "served": sum(r[0] == 200 for r in replies),
+               "status_503": sum(r[0] == 503 for r in replies),
+               "retry_after_on_503": sorted({r[1] for r in replies
+                                             if r[0] == 503}, key=str),
+               "shed": srv.batcher.n_shed,
+               "rejected": srv.batcher.n_rejected,
+               "after_burst_finite": bool(np.isfinite(after).all())}
+        dispatches = srv.batcher.n_dispatches
+    if (any(r is None or r[0] not in (200, 503) for r in replies)
+            or res["status_503"] == 0 or res["shed"] + res["rejected"] == 0
+            or res["retry_after_on_503"] != ["1"]
+            or not all(r[2] is True for r in replies if r[0] == 503)
+            or not res["after_burst_finite"]):
+        raise AssertionError(f"overload: {res} {replies}")
+    return res, prime, dispatches
+
+
+def start_server_cli(tmp, frames, centers):
+    """The server CLI with its defaults (resnet_18, bf16) on a seeded
+    resnet_18 ``.pth`` and 32 normalized crops written here, ``--port 0``,
+    in a process of its own; returns the process, a thread that reads its
+    output, and the int8 Predictor built the same way in this process."""
+    cfg = resnet_config(compute_dtype="bfloat16")
+    model = build_model(cfg.net, cfg.jt_num, cfg.downsample)
+    torch_default_init_(model, torch.Generator().manual_seed(SEED))
+    pth = os.path.join(tmp, "resnet_18.pth")
+    torch.save(randomize_batch_norm_(model).state_dict(), pth)
+    calib = os.path.join(tmp, "calib.npy")
+    np.save(calib, normalized_crops(cfg, frames, centers))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "awr_tpu_torch.server", "--pth", pth,
+         "--int8-calib", calib, "--port", "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    log = {"lines": [], "port": None, "ready": threading.Event()}
+
+    def read():
+        for line in proc.stdout:
+            log["lines"].append(line.rstrip())
+            if line.startswith("serving ") and log["port"] is None:
+                log["port"] = int(line.split(":")[-1].split()[0])
+                log["ready"].set()
+        log["ready"].set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    pred_q = Predictor.from_torch(cfg, pth, device="cuda")
+    pred_q.quantize(np.load(calib))
+    return proc, reader, log, pred_q
+
+
+def phase_server(pred, frames, centers):
+    """The port's serving stack on the card (the module's docstring):
+    the ``predict_async`` contract, the in-process ``AWRServer`` (float32
+    hourglass_1, then int8 resnet_18 under bf16), the server CLI serving
+    int8 resnet_18, the closed-loop load, priming and overload.  Returns
+    the launches of the server path."""
+    cfg = pred.cfg
+    out = {"phase": "server", "net": cfg.net, "img_size": cfg.img_size,
+           "frame_shape": list(frames.shape[1:])}
+    out["async_contract"] = async_contract(pred, frames, centers)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_server_") as tmp:
+        proc, reader, log, pred_q = start_server_cli(tmp, frames, centers)
+        try:
+            n8 = SERVER_INT8_FRAMES
+            want1 = pred.predict(frames[:1], centers[:1])[0]
+            want8 = pred.predict(frames[:n8], centers[:n8])
+            want_q = pred_q.predict(frames[:n8], centers[:n8])
+            out["host"] = host_costs(pred, frames, centers)
+
+            reset_counts()
+            d_http, out["http_max_abs_err"] = server_correctness(
+                pred, frames, centers, want1, want8)
+            with AWRServer(pred_q, port=0).start() as srv:
+                _, _, h = http_json(srv.port, "/healthz")
+                got_q = http_joints(srv.port, "/predict_batch", {
+                    "imgs_b64": b64(frames[:n8]),
+                    "shape": list(frames[:n8].shape),
+                    "centers_xyz": centers[:n8].tolist()})
+                d_int8 = srv.batcher.n_dispatches
+            out["int8_in_process"] = {
+                "healthz_int8": h["int8"],
+                "max_abs_err": float(np.abs(got_q - want_q).max())}
+            if h["int8"] is not True or not np.allclose(
+                    got_q, want_q, rtol=SERVER_RTOL, atol=SERVER_ATOL):
+                raise AssertionError(f"int8 server: {out['int8_in_process']}")
+
+            # the CLI, started above, before the load: its start-up would
+            # compete with the load for the host and the card
+            if not log["ready"].wait(SERVER_CLI_START_S) or not log["port"]:
+                raise AssertionError("server CLI did not start: "
+                                     + "\n".join(log["lines"]))
+            _, _, h = http_json(log["port"], "/healthz")
+            got_cli = http_joints(log["port"], "/predict_batch", {
+                "imgs_b64": b64(frames[:n8]), "shape": list(frames[:n8].shape),
+                "centers_xyz": centers[:n8].tolist()})
+            err = float(np.abs(got_cli - want_q).max())
+            out["cli"] = {"startup_lines": log["lines"], "healthz": h,
+                          "max_abs_err_vs_in_process": err,
+                          "atol": SERVER_CLI_ATOL}
+            if h["int8"] is not True or h["net"] != "resnet_18":
+                raise AssertionError(f"server CLI healthz: {h}")
+            if not err <= SERVER_CLI_ATOL:
+                raise AssertionError(f"server CLI joints differ by {err}")
+
+            out["load"], d_load = {}, 0
+            for clients in SERVER_LOAD_CLIENTS:
+                res, d = closed_loop(pred, frames, centers, tmp, clients)
+                out["load"][str(clients)] = res
+                d_load += d
+            out["overload"], out["priming"], d_over = overload_and_priming(
+                pred, frames, centers)
+            launches = counts()
+        finally:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+            reader.join(timeout=30)
+    out["dispatches"] = {"http": d_http, "int8": d_int8, "load": d_load,
+                         "overload_and_priming": d_over}
+    out["launches"] = launches
+    emit(out)
+    check_launches("server", launches, {
+        "decode": d_http + d_int8 + d_load + d_over,
+        "int8_gemm": 20 * d_int8, "deconv_int8_bf16": 3 * d_int8})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2201,6 +2690,7 @@ def main() -> int:
     for net, dtype in (("hourglass_1", "bfloat16"), ("resnet_18", "bfloat16"),
                        ("resnet_18", "float32")):
         phase_profile(f"train {net} {dtype}, B = 32", *steps[net][dtype])
+    launches["server"] = phase_server(pred, frames, centers)
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

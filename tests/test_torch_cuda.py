@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels (decode and its softmax statistics,
 decode backward, encode, int8 GEMM, int8 deconv) against their plain
 PyTorch versions, on the card, int8 requests of both backbones through
-them, and the QAT fine-tune's launches, fallback and TF32 rule.  Needs no
+them, the QAT fine-tune's launches, fallback and TF32 rule, and the
+``Predictor.predict_async`` contract the batching layer pipelines on.  Needs no
 JAX; skips without a GPU.  On a machine with one:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
@@ -588,3 +589,62 @@ def test_quantizers_match_the_cpu_bit_for_bit(cuda):
         for g, c in zip(got, want):
             assert torch.equal(g.cpu(), c)
     assert torch.equal(card[2].cpu(), cpu[2])
+
+
+def test_predict_async_does_not_wait_for_the_next_dispatch(cuda):
+    """The ``predict_async`` contract the batching layer pipelines on: a
+    second request's dispatch does not wait for the first's device work,
+    and the first's ``finalize`` returns while the second's work still
+    runs, with the joints of a blocking ``predict``."""
+    import time
+
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.data.synthetic import synthetic_frames
+
+    cfg = hourglass_config()
+    model = build_model(cfg.net, cfg.jt_num)
+    torch_default_init_(model, torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, model, device=cuda)
+    imgs, _, centers = synthetic_frames(8, 14, seed=0)
+    imgs, centers = np.tile(imgs, (16, 1, 1)), np.tile(centers, (16, 1))
+    want = pred.predict(imgs, centers)
+    for _ in range(2):  # the pinned blocks of two requests in flight
+        first, second = (pred.predict_async(imgs, centers) for _ in "ab")
+        first(), second()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    a_end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fin_a = pred.predict_async(imgs, centers)
+    a_end.record()
+    t0 = time.perf_counter()
+    fin_b = pred.predict_async(imgs, centers)
+    b_host_ms = (time.perf_counter() - t0) * 1e3
+    b_end = torch.cuda.Event()
+    b_end.record()
+    out_a = fin_a()
+    b_running = not b_end.query()
+    out_b = fin_b()
+    a_device_ms = start.elapsed_time(a_end)
+    assert b_host_ms < 0.5 * a_device_ms, (b_host_ms, a_device_ms)
+    assert b_running
+    np.testing.assert_array_equal(out_a, want)
+    np.testing.assert_array_equal(out_b, want)
+
+
+@pytest.mark.parametrize("B", [3, 8])  # below the bucket of 8, and at it
+def test_predict_pads_a_reversed_view_into_pinned_memory(cuda, B):
+    """The pinned fill of ``predict_async`` takes a float32 view with
+    negative strides, with the joints of its contiguous copy."""
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.data.synthetic import synthetic_frames
+
+    cfg = hourglass_config(img_size=64)
+    model = build_model(cfg.net, cfg.jt_num)
+    torch_default_init_(model, torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, model, device=cuda)
+    imgs, _, centers = synthetic_frames(B, 14, seed=0)
+    view = imgs[:, :, ::-1]
+    np.testing.assert_array_equal(
+        pred.predict(view, centers),
+        pred.predict(np.ascontiguousarray(view), centers))

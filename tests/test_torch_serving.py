@@ -72,6 +72,20 @@ def test_predict_xyz_and_async(predictors, frames):
     assert np.all(np.abs(xyz[..., 2] - centers[:2, None, 2]) < 200)
 
 
+@pytest.mark.parametrize("B", [3, 8])  # below the bucket of 8, and at it
+def test_predict_takes_a_reversed_view(predictors, frames, B):
+    """A float32 view with negative strides (frames mirrored left to
+    right) gives the joints of its contiguous copy."""
+    _, pred = predictors
+    imgs, _, centers = frames
+    imgs, centers = np.resize(imgs, (B,) + imgs.shape[1:]), np.resize(
+        centers, (B, 3))
+    view = imgs[:, :, ::-1]
+    np.testing.assert_array_equal(
+        pred.predict(view, centers),
+        pred.predict(np.ascontiguousarray(view), centers))
+
+
 def test_bucket_and_empty_batch(predictors):
     _, pred = predictors
     assert [pred._bucket(n) for n in (1, 8, 9, 33)] == [8, 8, 16, 64]
