@@ -134,12 +134,22 @@ def crop_normalize_batch(imgs, centers_uvd, cubes, paras, dsize: int):
     M = p_np.pop("M")
     dev = imgs.device
     p = {k: upload(v, dev) for k, v in p_np.items()}
+    center_z = upload(centers_uvd[:, 2].astype(np.float32), dev)
+    cube_z = upload(cubes[:, 2].astype(np.float32), dev)
+    return crop_normalize(imgs, p, center_z, cube_z, dsize), M
+
+
+def crop_normalize(imgs, p, center_z, cube_z, dsize: int):
+    """Crop raw (B, H0, W0) mm frames with the (B,) crop parameters ``p``
+    (:func:`crop_params_np`'s, without "M", as tensors on the frames'
+    device) and normalize them about the (B,) float32 ``center_z`` and
+    ``cube_z`` -> (B, dsize, dsize) float32 (the JAX package's
+    ``_crop_normalize_kernel``)."""
     B = imgs.shape[0]
-    center_z = upload(centers_uvd[:, 2].astype(np.float32), dev).view(B, 1, 1)
-    cube_z = upload(cubes[:, 2].astype(np.float32), dev).view(B, 1, 1)
     crop = _crop_gather(imgs, p, dsize)
     depth_max = crop.amax(dim=(1, 2), keepdim=True)
-    return normalize(crop, depth_max, center_z, cube_z), M
+    return normalize(crop, depth_max, center_z.view(B, 1, 1),
+                     cube_z.view(B, 1, 1))
 
 
 # --------------------------------------------------------------------------

@@ -10,9 +10,9 @@
   ``s_in * s_w[oc]`` (the product formed first, as the JAX package does).
   An int8 conv is im2col (``F.unfold`` on the float codes, which float32
   holds exactly) plus the int8 GEMM; an int8 transposed conv is the
-  polyphase int8 deconv.  On a CUDA tensor both are the hand-written
-  kernels (``ops/int8_cuda.py``), on a CPU tensor their plain versions
-  (``ops/int8.py``).  The dequantized product is float32, rounded once
+  polyphase int8 deconv.  Both are ops of ``ops/library.py``: on a CUDA
+  tensor the hand-written kernels (``ops/int8_cuda.py``), on a CPU
+  tensor their plain versions (``ops/int8.py``).  The dequantized product is float32, rounded once
   to the compute dtype (the layer's ``compute_dtype``; float32 if None):
   under bfloat16 the int8 deconv kernel rounds it in its epilogue.
   BatchNorm, ReLU, pooling, residual adds and the prediction heads stay
@@ -50,8 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from awr_tpu_torch.models.common import Conv2d, ConvTranspose2d
-from awr_tpu_torch.ops import int8 as int8_plain
-from awr_tpu_torch.ops import int8_cuda
+from awr_tpu_torch.ops import library
 
 _QMAX = 127.0
 MODES = ("off", "calib", "int8", "int8_w", "qat")
@@ -155,16 +154,10 @@ def _calib_amax(x: torch.Tensor, percentile: float) -> torch.Tensor:
     return lo * w_low.to(ax.device) + hi * w_high.to(ax.device)
 
 
-def _int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    if a.device.type == "cuda":
-        return int8_cuda.int8_matmul_cuda(a, b)
-    return int8_plain.int8_matmul(a, b)
-
-
-def _int8_deconv(xq, wq, scale, out_dtype) -> torch.Tensor:
-    if xq.device.type == "cuda":
-        return int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale, out_dtype)
-    return int8_plain.deconv4x4s2_int8(xq, wq, scale, out_dtype)
+# the int8 kernels' ops: the kernel on a CUDA tensor, the plain version
+# on a CPU tensor
+_int8_matmul = library.int8_matmul
+_int8_deconv = library.deconv4x4s2_int8
 
 
 def _to_int8(codes: torch.Tensor) -> torch.Tensor:

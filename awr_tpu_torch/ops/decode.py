@@ -1,41 +1,17 @@
-"""Decode dispatch: a CUDA tensor runs the hand-written kernels (the
-forward, and under autograd its backward), a CPU tensor the plain
-PyTorch version, which autograd differentiates directly."""
+"""Decode dispatch: the op ``awr_tpu_torch::decode``
+(:mod:`awr_tpu_torch.ops.library`), which runs the hand-written kernel
+on a CUDA tensor and the plain PyTorch version on a CPU tensor, and whose
+gradient in the map is the op ``awr_tpu_torch::decode_backward`` (the
+backward kernel, or on the CPU the VJP of the plain version)."""
 
 from __future__ import annotations
 
 import torch
 
-from awr_tpu_torch.ops import decode_cuda
-from awr_tpu_torch.ops.functional import offset2joint_softmax
-
-
-class DecodeCuda(torch.autograd.Function):
-    """The CUDA decode with the CUDA decode backward as its gradient
-    (the JAX package's ``custom_vjp`` around its Pallas decode).  The
-    forward saves its softmax statistics, so the backward never
-    recomputes them.  Only the map gets a gradient: the train step never
-    differentiates with respect to the depth."""
-
-    @staticmethod
-    def forward(ctx, offset, img, kernel_size):
-        out, stats = decode_cuda.offset2joint_softmax_cuda(offset, img,
-                                                           kernel_size)
-        ctx.save_for_backward(offset, img, out, stats)
-        ctx.kernel_size = kernel_size
-        return out
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        offset, img, out, stats = ctx.saved_tensors
-        grad = decode_cuda.offset2joint_softmax_backward_cuda(
-            offset, img, out, stats, grad_out.contiguous(), ctx.kernel_size)
-        return grad, None, None
+from awr_tpu_torch.ops import library
 
 
 def decode_offsets(offset: torch.Tensor, img: torch.Tensor,
                    kernel_size: float) -> torch.Tensor:
     """(B, 4J, F, F) dense map + (B, H, W) depth -> (B, J, 3) joints."""
-    if offset.device.type == "cuda":
-        return DecodeCuda.apply(offset, img, kernel_size)
-    return offset2joint_softmax(offset, img, kernel_size)
+    return library.decode(offset, img, float(kernel_size))[0]

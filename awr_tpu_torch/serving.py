@@ -5,7 +5,9 @@ decode -> de-normalize, test.py:61-108) as one call: crop parameters on
 the host, crop and normalize on the device, the backbone forward, the
 AWR decode (the hand-written CUDA kernel on a GPU), and the
 de-normalization back to (u px, v px, d mm) in the original camera
-frame, the reference's results/*.txt convention.  :meth:`Predictor.quantize`
+frame, the reference's results/*.txt convention.
+:meth:`Predictor.export_program` saves either extent as a ``torch.export``
+program (:mod:`awr_tpu_torch.export` loads it).  :meth:`Predictor.quantize`
 switches a Predictor of either backbone to int8 inference,
 :meth:`Predictor.quantize_qat` after a validated QAT fine-tune.  The backbone runs
 in ``config.compute_dtype`` (float32 or bfloat16; the weights stay
@@ -21,15 +23,64 @@ import numpy as np
 import torch
 from torch import nn
 
+from awr_tpu_torch import export
 from awr_tpu_torch.config import Config, resolve_device
-from awr_tpu_torch.data.device import crop_normalize_batch
+from awr_tpu_torch.data.device import crop_normalize, crop_normalize_batch
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import set_compute_dtype
 from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
 from awr_tpu_torch.training import qat
-from awr_tpu_torch.training.steps import make_infer_step
+from awr_tpu_torch.training.steps import infer, make_infer_step
+
+
+def denormalize_uvd(pred: torch.Tensor, M: torch.Tensor,
+                    center_z: torch.Tensor, cube_z: torch.Tensor,
+                    img_size: int) -> torch.Tensor:
+    """Normalized (B, J, 3) uvd -> camera (u px, v px, d mm) on the
+    device, all in float32 with a float32 inverse of the (B, 3, 3) crop
+    affine ``M`` (the JAX package's in-graph de-normalization;
+    :meth:`Predictor.denormalize` inverts ``M`` in float64 on the host;
+    the tests hold the two within 0.01 px, the JAX package's bar)."""
+    uv_px = (pred[..., :2] + 1.0) * (img_size / 2.0)
+    d_mm = pred[..., 2] * cube_z[:, None] / 2.0 + center_z[:, None]
+    uv1 = torch.cat([uv_px, torch.ones_like(uv_px[..., :1])], -1)
+    # inv_ex: no host sync (and no singularity check)
+    uv = torch.einsum("bij,bkj->bki", torch.linalg.inv_ex(M).inverse, uv1)
+    return torch.cat([uv[..., :2], d_mm[..., None]], -1)
+
+
+class _NormalizedProgram(nn.Module):
+    """``raw_hw=None``: (B, S, S) normalized depth -> (B, J, 3)
+    normalized uvd, :meth:`Predictor.predict_normalized` without the
+    buckets."""
+
+    def __init__(self, model: nn.Module, kernel_size: float):
+        super().__init__()
+        self.model = model
+        self.kernel_size = kernel_size
+
+    def forward(self, img):
+        return infer(self.model, img, self.kernel_size)
+
+
+class _RawProgram(_NormalizedProgram):
+    """``raw_hw=(H0, W0)``: raw (B, H0, W0) mm frames, the crop
+    parameters, (B,) center and cube depths -> (B, J, 3) camera (u px, v
+    px, d mm): :meth:`Predictor.predict` past the host's crop
+    parameters."""
+
+    def __init__(self, model: nn.Module, kernel_size: float, img_size: int):
+        super().__init__(model, kernel_size)
+        self.img_size = img_size
+
+    def forward(self, imgs_raw, crop_params, center_z, cube_z):
+        p = {k: v for k, v in crop_params.items() if k != "M"}
+        img = crop_normalize(imgs_raw, p, center_z, cube_z, self.img_size)
+        return denormalize_uvd(infer(self.model, img, self.kernel_size),
+                               crop_params["M"], center_z, cube_z,
+                               self.img_size)
 
 
 class Predictor:
@@ -94,7 +145,9 @@ class Predictor:
         ``percentile``: the calibration statistic; the default p99.99
         clips activation outliers (the JAX package measured it better
         than the max on trained nets)."""
-        imgs = np.asarray(calib_imgs_normalized, np.float32)
+        # contiguous: ``torch.from_numpy`` refuses a view with negative
+        # strides
+        imgs = np.ascontiguousarray(calib_imgs_normalized, np.float32)
         if imgs.ndim != 3 or len(imgs) == 0:
             raise ValueError(f"expected (N, S, S) frames, got {imgs.shape}")
         batches = [torch.from_numpy(imgs[i:i + 32]).to(self.device)
@@ -161,6 +214,56 @@ class Predictor:
             self.qat_validation = validation
         return losses
 
+    def export_program(self, batch_size: int, path: Optional[str] = None,
+                       raw_hw: Optional[tuple] = None) -> bytes:
+        """Save the serving graph as a ``torch.export`` program (the JAX
+        package's ``export_stablehlo``), traced on this Predictor's device
+        in its compute dtype, int8 after :meth:`quantize` or
+        :meth:`quantize_qat`: the weights and the int8 scales are in the
+        program, the layers' mode and dtype fixed as they are now.
+        Returns the bytes (``torch.export.save`` and the signature
+        :func:`awr_tpu_torch.export.load` reads), written to ``path`` too
+        if one is given.
+
+        ``raw_hw=None``: the program takes (batch_size, S, S) float32
+        normalized depth and returns (batch_size, J, 3) normalized uvd,
+        :meth:`predict_normalized` without the bucketing.
+
+        ``raw_hw=(H0, W0)``: ``call(imgs_raw, crop_params, center_z,
+        cube_z)`` takes (batch_size, H0, W0) float32 raw mm frames, the
+        dict of ``data.transforms.crop_params_np`` (int32 ``us ue vs ve
+        sw sh tx ty``, float32 ``zs ze`` and the (B, 3, 3) ``M``) and (B,)
+        float32 center and cube depths, and returns (batch_size, J, 3)
+        camera (u px, v px, d mm): the device crop, the forward, the
+        decode and :func:`denormalize_uvd` (a float32 inverse of ``M``).
+
+        The program names the kernels as the ops of
+        :mod:`awr_tpu_torch.ops.library`, so loading it needs them
+        registered (``awr_tpu_torch.export.load`` imports them), and it
+        runs on the kind of device it was traced on: the deviations from a
+        StableHLO payload (:mod:`awr_tpu_torch.export`)."""
+        B, size, dev = int(batch_size), self.cfg.img_size, self.device
+        if raw_hw is None:
+            program = _NormalizedProgram(self.model, self.cfg.kernel_size)
+            args = (torch.zeros((B, size, size), device=dev),)
+        else:
+            raw_hw = tuple(int(x) for x in raw_hw)
+            program = _RawProgram(self.model, self.cfg.kernel_size, size)
+            crop = {k: torch.zeros(B, dtype=torch.int32, device=dev)
+                    for k in export.CROP_KEYS}
+            crop.update(zs=torch.zeros(B, device=dev),
+                        ze=torch.zeros(B, device=dev),
+                        M=torch.eye(3, device=dev).expand(B, 3, 3).clone())
+            args = (torch.zeros((B,) + raw_hw, device=dev), crop,
+                    torch.zeros(B, device=dev), torch.zeros(B, device=dev))
+        with torch.no_grad():
+            traced = torch.export.export(program.eval(), args)
+        # the zeros it was traced on are not worth saving (39 MB of raw
+        # frames at B = 32)
+        traced.example_inputs = None
+        return export.save(traced, dict(device=str(dev), batch_size=B,
+                                        raw_hw=raw_hw), path)
+
     def _bucket(self, n: int) -> int:
         """Pad batch size up to a power-of-two bucket (min 8), so the
         device sees a few batch shapes, whatever the clients send."""
@@ -178,7 +281,8 @@ class Predictor:
     def predict_normalized(self, img_norm) -> np.ndarray:
         """(B, S, S) normalized depth -> (B, J, 3) normalized uvd.
         Padding rows are discarded."""
-        img_norm = np.asarray(img_norm, np.float32)
+        # contiguous: the pad copies nothing at a full bucket
+        img_norm = np.ascontiguousarray(img_norm, np.float32)
         n = len(img_norm)
         if n == 0:
             raise ValueError("empty batch: predict_normalized needs at "

@@ -60,7 +60,8 @@ def gap_scaled_recipe() -> tuple:
 
 
 def _device_batches(batches, device) -> list:
-    return [{k: torch.from_numpy(np.asarray(b[k], np.float32)).to(device)
+    return [{k: torch.from_numpy(np.ascontiguousarray(b[k], np.float32))
+             .to(device)
              for k in ("img", "jt_uvd")} for b in batches]
 
 

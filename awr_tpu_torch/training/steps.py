@@ -202,6 +202,14 @@ def make_raw_eval_step(model, cfg, paras, flip: int):
     return raw_eval_step
 
 
+def infer(model, img: torch.Tensor, kernel_size: float) -> torch.Tensor:
+    """(B, S, S) normalized depth -> (B, J, 3) normalized uvd joints
+    decoded from the last stack: the inference step's body, which
+    ``Predictor.export_program`` traces."""
+    preds = _stacked(model(img[:, None]))
+    return decode_offsets(preds[-1], img, kernel_size)
+
+
 def make_infer_step(model, cfg):
     """``infer_step((B, S, S) normalized depth) -> (B, J, 3)`` normalized
     uvd joints, on the model's device, without autograd."""
@@ -209,7 +217,6 @@ def make_infer_step(model, cfg):
 
     @torch.inference_mode()
     def infer_step(img: torch.Tensor) -> torch.Tensor:
-        preds = _stacked(model(img[:, None]))
-        return decode_offsets(preds[-1], img, kernel)
+        return infer(model, img, kernel)
 
     return infer_step

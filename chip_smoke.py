@@ -136,6 +136,7 @@ from awr_tpu_torch.data.nyu import (EVAL_SELECT, JOINT_SELECT, NYU_FLIP,
                                     NYU_PARAS, NYUDataset)
 from awr_tpu_torch.data.synthetic import (SyntheticHandDataset,
                                           render_hand_depth, synthetic_frames)
+from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
@@ -317,6 +318,20 @@ SERVER_RTOL, SERVER_ATOL = 1e-4, 1e-3
 SERVER_CLI_ATOL = 1e-3
 SERVER_CLI_START_S = 300.0
 SERVER_INT8_FRAMES = 8
+# The export phase: programs traced by Predictor.export_program at
+# B = 32, saved, and run in a fresh process that imports torch, numpy and
+# the loader only, against the Predictor call each replaces.  The
+# normalized extent: the same kernels and cuDNN convs on the same inputs
+# (1e-5 bounds cuDNN taking another algorithm in the other process); the
+# raw extent: a float32 inverse of the crop affine in the program against
+# the Predictor's float64 one on the host (the JAX package's bar,
+# tests/test_serving.py:285); int8: INT8_CPU_ATOL.  Times: the median of
+# EXPORT_REPS calls, each ending in a device sync (the program's between
+# two ``torch.cuda.synchronize``, its joints copied to the host as the
+# Predictor's are).
+EXPORT_BATCH = 32
+EXPORT_ATOL = {"normalized": 1e-5, "raw": 1e-2, "int8": 1e-3}
+EXPORT_REPS = 20
 # (HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s) from
 # NVIDIA's data sheets; dense int8 is half the with-sparsity figure
 PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
@@ -2642,6 +2657,162 @@ def phase_server(pred, frames, centers):
     return launches
 
 
+# The export phase's fresh process: argv the directory of programs and
+# inputs, and the launch counters as JSON ([name, module, counter]).  It
+# imports torch, numpy and the loader only; for each program in
+# jobs.json it runs one call (held to the parent's output), reads the
+# counters, then times EXPORT_REPS calls after two warm ones; prints one
+# JSON line a program.
+EXPORT_CHILD = r"""
+import json, os, sys, time
+import numpy as np
+import torch
+from awr_tpu_torch import export
+root, counters = sys.argv[1], json.loads(sys.argv[2])
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+def counts():
+    return {n: getattr(sys.modules[m], c) for n, m, c in counters}
+def reset():
+    for n, m, c in counters:
+        setattr(sys.modules[m], c, 0)
+with open(os.path.join(root, "jobs.json")) as fh:
+    jobs = json.load(fh)
+for job in jobs:
+    t0 = time.perf_counter()
+    prog = export.load(os.path.join(root, job["file"]))
+    load_s = time.perf_counter() - t0
+    inputs = np.load(os.path.join(root, job["inputs"]))
+    if prog.raw_hw is None:
+        args = (inputs["img"],)
+    else:
+        args = (inputs["frames"],
+                {k: inputs["crop_" + k] for k in export.CROP_KEYS},
+                inputs["center_z"], inputs["cube_z"])
+    reset()
+    got = prog.call(*args).cpu().numpy()
+    first = counts()
+    def call():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prog.call(*args).cpu()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+    for _ in range(2):
+        call()
+    ms = [call() for _ in range(job["reps"])]
+    want = np.load(os.path.join(root, job["want"]))
+    print(json.dumps({
+        "program": job["name"], "load_s": load_s, "shape": list(got.shape),
+        "finite": bool(np.isfinite(got).all()),
+        "max_abs_err": float(np.abs(got - want).max()),
+        "launches_first_call": first, "launches": counts(),
+        "calls": 3 + job["reps"], "call_ms": float(np.median(ms)),
+        "models_imported": "awr_tpu_torch.models" in sys.modules,
+        "serving_imported": "awr_tpu_torch.serving" in sys.modules}),
+        flush=True)
+"""
+
+
+def phase_export(pred, pred_q, frames, centers):
+    """``Predictor.export_program`` on the card: hourglass_1 float32 in
+    both extents, hourglass_1 bf16 and int8 resnet_18 (after
+    ``quantize``) normalized, traced here at B = EXPORT_BATCH (tracing
+    launches no kernel), saved, and run in a fresh process that imports
+    no model code (EXPORT_CHILD): each program's joints against the
+    Predictor's, its exact launches, its call time beside the Predictor
+    call it replaces.  Returns the launches of the fresh process."""
+    B = EXPORT_BATCH
+    f, c = np.resize(frames, (B,) + frames.shape[1:]), np.resize(centers,
+                                                                  (B, 3))
+    cfg = pred.cfg
+    bf16 = Predictor(cfg.replace(compute_dtype="bfloat16"),
+                     pred.model.state_dict(), device="cuda")
+    crops = normalized_crops(cfg, f, c)
+    crops_q = normalized_crops(pred_q.cfg, f, c)
+    per_call = {"decode": 1}
+    jobs = [("hourglass_1_float32_normalized", pred, None, crops, per_call,
+             "normalized"),
+            ("hourglass_1_float32_raw", pred, f.shape[1:], None, per_call,
+             "raw"),
+            ("hourglass_1_bfloat16_normalized", bf16, None, crops, per_call,
+             "normalized"),
+            ("resnet_18_int8_normalized", pred_q, None, crops_q,
+             {"decode": 1, "int8_gemm": 20, "deconv_int8": 3}, "int8")]
+    out = {"phase": "export", "batch": B, "programs": {}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        listing = []
+        for name, p, raw_hw, img, want, bar in jobs:
+            reset_counts()
+            t0 = time.perf_counter()
+            payload = p.export_program(B, os.path.join(tmp, f"{name}.pt2"),
+                                       raw_hw=raw_hw)
+            export_s = time.perf_counter() - t0
+            check_launches(f"export trace {name}", counts(), {})
+            if raw_hw is None:
+                inputs = {"img": img}
+                want_out = p.predict_normalized(img)
+                pred_ms = host_ms(lambda: p.predict_normalized(img),
+                                  EXPORT_REPS)
+            else:
+                cubes = np.tile(np.asarray(p.cfg.cube, np.float64), (B, 1))
+                cu = xyz2uvd_np(c, p.cfg.paras, p.cfg.flip)
+                crop = crop_params_np(cu, cubes, np.asarray(p.cfg.paras),
+                                      p.cfg.img_size)
+                inputs = {"frames": f, "center_z": cu[:, 2].astype(np.float32),
+                          "cube_z": cubes[:, 2].astype(np.float32)}
+                inputs.update({"crop_" + k: v for k, v in crop.items()})
+                want_out = p.predict(f, c)
+                pred_ms = host_ms(lambda: p.predict(f, c), EXPORT_REPS)
+            np.savez(os.path.join(tmp, f"{name}_inputs.npz"), **inputs)
+            np.save(os.path.join(tmp, f"{name}_want.npy"), want_out)
+            listing.append({"name": name, "file": f"{name}.pt2",
+                            "inputs": f"{name}_inputs.npz",
+                            "want": f"{name}_want.npy", "reps": EXPORT_REPS})
+            out["programs"][name] = {
+                "bytes": len(payload), "export_s": export_s,
+                "predictor_ms": pred_ms, "atol": EXPORT_ATOL[bar],
+                "per_call": want}
+        with open(os.path.join(tmp, "jobs.json"), "w") as fh:
+            json.dump(listing, fh)
+        counters = [[k["name"], k["module"].__name__, k["counter"]]
+                    for k in KERNELS]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXPORT_CHILD, tmp, json.dumps(counters)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=900)
+        out["child_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export: the fresh process failed:\n"
+                             f"{proc.stderr[-4000:]}")
+    launches = {k["name"]: 0 for k in KERNELS}
+    for line in proc.stdout.splitlines():
+        res = json.loads(line)
+        rec = out["programs"][res["program"]]
+        rec.update(res)
+        want = rec["per_call"]
+        check_launches(f"export {res['program']} (first call)",
+                       res["launches_first_call"], want)
+        check_launches(f"export {res['program']}", res["launches"],
+                       {k: n * res["calls"] for k, n in want.items()})
+        for k, n in res["launches"].items():
+            launches[k] += n
+    out["launches"] = launches
+    emit(out)
+    for name, rec in out["programs"].items():
+        if "max_abs_err" not in rec:
+            raise AssertionError(f"export {name}: no result from the fresh "
+                                 f"process")
+        if rec["models_imported"] or rec["serving_imported"]:
+            raise AssertionError(f"export {name}: the loader imported the "
+                                 f"models or the Predictor")
+        if (not rec["finite"] or rec["shape"] != [B, cfg.jt_num, 3]
+                or not rec["max_abs_err"] <= rec["atol"]):
+            raise AssertionError(f"export {name}: {rec}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2691,6 +2862,7 @@ def main() -> int:
                        ("resnet_18", "float32")):
         phase_profile(f"train {net} {dtype}, B = 32", *steps[net][dtype])
     launches["server"] = phase_server(pred, frames, centers)
+    launches["export"] = phase_export(pred, pred_q, frames, centers)
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

@@ -648,3 +648,39 @@ def test_predict_pads_a_reversed_view_into_pinned_memory(cuda, B):
     np.testing.assert_array_equal(
         pred.predict(view, centers),
         pred.predict(np.ascontiguousarray(view), centers))
+
+
+@pytest.mark.parametrize("net", ["hourglass_1", "resnet_18_int8"])
+def test_exported_program_runs_the_kernels(cuda, tmp_path, net):
+    """``Predictor.export_program`` at img 64, B = 8, read back by
+    ``awr_tpu_torch.export.load``: tracing launches no kernel; a call of
+    the program gives ``predict_normalized``'s joints (the same kernels
+    and cuDNN convs on the same input) and launches exactly what a
+    request does (one decode; int8 resnet_18 also 20 GEMMs and 3
+    deconvs)."""
+    from awr_tpu_torch import export
+
+    img = np.random.RandomState(2).uniform(-1, 1, (8, 64, 64)).astype(
+        np.float32)
+    if net == "hourglass_1":
+        pred = hourglass_int8_predictor(cuda)
+    else:
+        cfg = resnet_config(img_size=64)
+        model = torch_default_init_(build_model(cfg.net, cfg.jt_num),
+                                    torch.Generator().manual_seed(0))
+        pred = Predictor(cfg, model, device=cuda)
+        pred.quantize(img)
+    counters = lambda: (decode_cuda.LAUNCHES,  # noqa: E731
+                        int8_cuda.GEMM_LAUNCHES, int8_cuda.DECONV_LAUNCHES,
+                        encode_cuda.LAUNCHES)
+    want = pred.predict_normalized(img)
+    before = counters()
+    pred.export_program(8, str(tmp_path / "program.pt2"))
+    assert counters() == before
+    prog = export.load(str(tmp_path / "program.pt2"))
+    got = prog.call(img)
+    torch.cuda.synchronize()
+    per_call = [1, 0, 0, 0] if net == "hourglass_1" else [1, 20, 3, 0]
+    assert [y - x for x, y in zip(before, counters())] == per_call
+    assert got.device.type == "cuda" and got.shape == (8, 14, 3)
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5)

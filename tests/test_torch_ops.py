@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from awr_tpu.data.device import crop_normalize_batch as jax_crop_normalize
 from awr_tpu.data.synthetic import SyntheticHandDataset
@@ -20,18 +21,22 @@ from awr_tpu.ops.functional import SOFTMAX_TEMP as JAX_SOFTMAX_TEMP
 from awr_tpu.ops.functional import resize_nearest as jax_resize
 from awr_tpu.ops.pallas_decode import decode_pallas
 from awr_tpu.ops.pallas_encode import encode_pallas
-from awr_tpu_torch.config import NYU_PARAS
+from awr_tpu_torch.config import NYU_PARAS, hourglass_config, resnet_config
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.data.synthetic import render_hand_depth, synthetic_frames
 from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
-from awr_tpu_torch.ops import decode, decode_cuda, encode_cuda
+from awr_tpu_torch.models import build_model
+from awr_tpu_torch.models.common import torch_default_init_
+from awr_tpu_torch.ops import decode, decode_cuda, encode_cuda, library
 from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
                                           offset2joint_softmax_backward,
                                           offset2joint_softmax_stats,
                                           resize_nearest)
+from awr_tpu_torch.serving import Predictor
+from awr_tpu_torch.training.steps import infer
 
 J = 14
 KERNEL = 0.4
@@ -236,43 +241,49 @@ def test_decode_backward_bf16_map_gives_bf16_gradient():
     torch.testing.assert_close(got, want.bfloat16(), rtol=0, atol=0)
 
 
-def test_decode_autograd_function_wiring(monkeypatch):
-    """The CUDA path's autograd.Function, with its two kernels replaced by
-    their plain versions so it runs here: the output has a grad_fn, the
-    forward's softmax statistics are saved, the backward goes
-    through the backward kernel's wrapper once with the forward's saved
-    output and statistics, and the gradient is autograd's through the
-    plain forward.  (tests/test_torch_cuda.py runs the kernels.)"""
-    calls, saved = [], []
+def test_decode_autograd_function_wiring():
+    """The decode op's autograd registration, on the CPU: the output has
+    a grad_fn that saved the map, the depth, the joints and the softmax
+    statistics; the backward calls the op ``decode_backward`` once, with
+    the forward's output and statistics; and the gradient is autograd's
+    through the plain forward, bit for bit in float64 and float32 (the
+    float64 multi-step parity tests amplify one ulp).  No gradient under
+    ``inference_mode``.  (tests/test_torch_cuda.py runs the kernels.)"""
+    calls = []
 
-    def forward(offset, img, k):
-        saved.append(offset2joint_softmax_stats(offset, img))
-        return offset2joint_softmax(offset, img, k), saved[-1]
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.namespace == "awr_tpu_torch":
+                calls.append((func.__name__, args))
+            return func(*args, **(kwargs or {}))
 
-    def backward(offset, img, out, stats, grad_out, k):
-        calls.append((out, stats))
-        return offset2joint_softmax_backward(offset, img, k, grad_out, stats)
-
-    monkeypatch.setattr(decode_cuda, "offset2joint_softmax_cuda", forward)
-    monkeypatch.setattr(decode_cuda, "offset2joint_softmax_backward_cuda",
-                        backward)
     off, img = decode_inputs(8, "mixed")
-    off_t = torch.from_numpy(np.ascontiguousarray(off.transpose(0, 3, 1, 2)))
-    img_t = torch.from_numpy(img)
-    g = torch.randn(2, J, 3, generator=torch.Generator().manual_seed(1))
-    leaf = off_t.clone().requires_grad_()
-    out = decode.DecodeCuda.apply(leaf, img_t, KERNEL)
-    assert out.grad_fn is not None
-    out.backward(g)
-    assert len(calls) == 1 and torch.equal(calls[0][0], out.detach())
-    assert len(saved) == 1 and calls[0][1] is saved[0]
-    ref = off_t.clone().requires_grad_()
-    offset2joint_softmax(ref, img_t, KERNEL).backward(g)
-    torch.testing.assert_close(leaf.grad, ref.grad, rtol=1e-5,
-                               atol=4e-6 * float(ref.grad.abs().max()))
+    for dtype in (torch.float64, torch.float32):
+        calls.clear()
+        off_t = torch.from_numpy(
+            np.ascontiguousarray(off.transpose(0, 3, 1, 2))).to(dtype)
+        img_t = torch.from_numpy(img).to(dtype)
+        g = torch.randn(2, J, 3, generator=torch.Generator().manual_seed(1),
+                        dtype=dtype)
+        leaf = off_t.clone().requires_grad_()
+        with Record():
+            out = decode.decode_offsets(leaf, img_t, KERNEL)
+            assert out.grad_fn is not None
+            saved = out.grad_fn.saved_tensors
+            assert len(saved) == 4 and torch.equal(saved[2], out.detach())
+            assert torch.equal(saved[3],
+                               offset2joint_softmax_stats(off_t, img_t))
+            out.backward(g)
+        assert [c[0] for c in calls] == ["decode.default",
+                                         "decode_backward.default"]
+        assert torch.equal(calls[1][1][2], out.detach())
+        assert calls[1][1][3] is saved[3]
+        ref = off_t.clone().requires_grad_()
+        offset2joint_softmax(ref, img_t, KERNEL).backward(g)
+        assert leaf.grad.dtype == dtype
+        assert torch.equal(leaf.grad, ref.grad)
     with torch.inference_mode():
-        assert decode.DecodeCuda.apply(off_t, img_t, KERNEL).grad_fn is None
-    assert len(calls) == 1
+        assert decode.decode_offsets(off_t, img_t, KERNEL).grad_fn is None
 
 
 @pytest.mark.parametrize("dtype", [np.float64, np.float32])
@@ -382,3 +393,96 @@ def test_synthetic_frames_match_dataset():
     np.testing.assert_array_equal(
         render_hand_depth(centers[0], joints[0], NYU_PARAS, (120, 160)),
         jax_render(centers[0], joints[0], NYU_PARAS, (120, 160)))
+
+
+# --- the custom ops of awr_tpu_torch/ops/library.py
+
+def _opcheck_cases():
+    """Each op at small shapes through its CPU implementation: the
+    decode with a float32 and a bfloat16 map (and a map that requires a
+    gradient, which reaches the autograd registration), its backward,
+    the encode, the int8 GEMM, and the deconv writing float32 and
+    bfloat16."""
+    g = torch.Generator().manual_seed(0)
+    off = torch.randn(2, 56, 8, 8, generator=g) * 0.3
+    img = torch.rand(2, 16, 16, generator=g) * 2 - 1
+    img[:, :4] = 1.0
+    jt = torch.rand(2, 14, 3, generator=g) * 1.6 - 0.8
+    out, stats = library.decode(off, img, 0.4)
+    a = torch.randint(-127, 128, (40, 48), generator=g, dtype=torch.int8)
+    b = torch.randint(-127, 128, (24, 48), generator=g, dtype=torch.int8)
+    xq = torch.randint(-127, 128, (2, 3, 5, 16), generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (16, 8, 4, 4), generator=g,
+                       dtype=torch.int8)
+    scale = torch.rand(8, generator=g) * 1e-3
+    return {
+        "decode_f32": (library.decode, (off, img, 0.4)),
+        "decode_bf16": (library.decode, (off.bfloat16(), img, 0.4)),
+        "decode_grad": (library.decode,
+                        (off.clone().requires_grad_(), img, 0.4)),
+        "decode_backward": (library.decode_backward,
+                            (off, img, out, stats,
+                             torch.randn(2, 14, 3, generator=g), 0.4)),
+        "encode": (library.encode, (jt, img, 0.4, 8)),
+        "int8_matmul": (library.int8_matmul, (a, b.t())),
+        "deconv_f32": (library.deconv4x4s2_int8,
+                       (xq, wq, scale, torch.float32)),
+        "deconv_bf16": (library.deconv4x4s2_int8,
+                        (xq, wq, scale, torch.bfloat16)),
+    }
+
+
+@pytest.mark.parametrize("name", list(_opcheck_cases()))
+def test_custom_op_passes_opcheck(name):
+    op, args = _opcheck_cases()[name]
+    torch.library.opcheck(op, args)
+
+
+def test_ops_give_the_plain_versions():
+    """On CPU tensors each op is its plain version, bit for bit."""
+    c = _opcheck_cases()
+    off, img, k = c["decode_f32"][1]
+    out, stats = library.decode(off, img, k)
+    assert torch.equal(out, offset2joint_softmax(off, img, k))
+    assert torch.equal(stats, offset2joint_softmax_stats(off, img))
+    jt, img, k, f = c["encode"][1]
+    assert torch.equal(library.encode(jt, img, k, f),
+                       joint2offset(jt, img, k, f))
+
+
+def _random_predictor(net, int8):
+    """A CPU Predictor of ``net`` at img 32 with PyTorch's default init
+    (seeded), after ``quantize`` with ``int8``; and 8 normalized crops of
+    synthetic frames."""
+    cfg = (hourglass_config if net == "hourglass_1" else resnet_config)(
+        img_size=32)
+    model = torch_default_init_(
+        build_model(cfg.net, cfg.jt_num, cfg.downsample),
+        torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, model, device="cpu")
+    imgs, _, centers = synthetic_frames(8, J, seed=13)
+    crops = crop_normalize_batch(
+        torch.from_numpy(imgs), xyz2uvd_np(centers, pred.paras, pred.flip),
+        np.tile(cfg.cube, (8, 1)), pred.paras, 32)[0].numpy()
+    if int8:
+        pred.quantize(crops)
+    return pred, crops
+
+
+@pytest.mark.parametrize("net,int8", [("hourglass_1", False),
+                                      ("resnet_18", True)])
+def test_compile_traces_through_the_kernels(net, int8):
+    """``torch.compile(backend="aot_eager", fullgraph=True)`` of the
+    inference step, float32 hourglass_1 and int8 resnet_18 (GEMMs and
+    deconvs): no ``ctypes`` call breaks the graph, and the compiled step
+    gives the eager step's joints."""
+    pred, crops = _random_predictor(net, int8)
+    k = pred.cfg.kernel_size
+    step = torch.compile(lambda x: infer(pred.model, x, k),
+                         backend="aot_eager", fullgraph=True)
+    x = torch.from_numpy(crops)
+    with torch.no_grad():
+        got = step(x)
+        want = infer(pred.model, x, k)
+    assert torch.equal(got, want)

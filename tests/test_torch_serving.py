@@ -3,6 +3,7 @@
 boundary."""
 
 import ast
+import copy
 import os
 import pathlib
 
@@ -21,6 +22,7 @@ from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.weights import load_flax_variables
 from awr_tpu_torch.serving import Predictor
+from awr_tpu_torch.training import qat
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 IMG = 64
@@ -84,6 +86,59 @@ def test_predict_takes_a_reversed_view(predictors, frames, B):
     np.testing.assert_array_equal(
         pred.predict(view, centers),
         pred.predict(np.ascontiguousarray(view), centers))
+
+
+@pytest.mark.parametrize("B", [8, 16])  # full buckets: the pad copies nothing
+def test_predict_normalized_takes_a_reversed_view(predictors, frames, B):
+    """``predict_normalized`` on a float32 view with negative strides
+    gives the joints of its contiguous copy."""
+    _, pred = predictors
+    imgs, _, centers = frames
+    crops, _ = crop_normalize_batch(
+        torch.from_numpy(imgs), xyz2uvd_np(centers, pred.paras, pred.flip),
+        np.tile(pred.cfg.cube, (3, 1)), pred.paras, IMG)
+    view = np.resize(crops.numpy(), (B, IMG, IMG))[:, ::-1]
+    np.testing.assert_array_equal(
+        pred.predict_normalized(view),
+        pred.predict_normalized(np.ascontiguousarray(view)))
+
+
+def test_quantize_takes_a_reversed_view(predictors, frames):
+    """``quantize`` calibrates on a view with negative strides to the
+    scales of its contiguous copy, bit for bit."""
+    _, pred = predictors
+    view = np.random.RandomState(3).uniform(
+        -1, 1, (4, IMG, IMG)).astype(np.float32)[:, :, ::-1]
+    got, want = copy.deepcopy(pred), copy.deepcopy(pred)
+    got.quantize(view)
+    want.quantize(np.ascontiguousarray(view))
+    assert got.quant.keys() == want.quant.keys()
+    for k in want.quant:
+        assert torch.equal(got.quant[k], want.quant[k]), k
+
+
+def test_qat_batches_take_a_reversed_view(predictors):
+    """The QAT fine-tune's batches (``qat._device_batches``, which
+    ``finetune``, ``int8_holdout_metrics`` and ``quantize_qat`` take) with
+    a reversed ``img``: the batches, and one QAT step's losses and
+    scales, equal those of the contiguous copy."""
+    _, pred = predictors
+    rng = np.random.RandomState(4)
+    img = rng.uniform(-1, 1, (4, IMG, IMG)).astype(np.float32)[:, ::-1]
+    jt = rng.uniform(-0.8, 0.8, (4, 14, 3)).astype(np.float32)
+    view = {"img": img, "jt_uvd": jt}
+    dense = {"img": np.ascontiguousarray(img), "jt_uvd": jt}
+    (got,), (want,) = (qat._device_batches([b], "cpu")
+                       for b in (view, dense))
+    assert all(torch.equal(got[k], want[k]) for k in want)
+    a, b = copy.deepcopy(pred), copy.deepcopy(pred)
+    assert (a.quantize_qat([view], steps=1, lr=1e-5,
+                           holdout_batches=[view])
+            == b.quantize_qat([dense], steps=1, lr=1e-5,
+                              holdout_batches=[dense]))
+    assert a.qat_validation == b.qat_validation
+    for k in b.quant:
+        assert torch.equal(a.quant[k], b.quant[k]), k
 
 
 def test_bucket_and_empty_batch(predictors):
