@@ -86,6 +86,73 @@ def batch_norm(ch: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
+class GlobalBatchNorm2d(nn.BatchNorm2d):
+    """``BatchNorm2d`` whose train-mode statistics are those of the
+    global batch over the ``torch.distributed`` process group: what the
+    JAX package's ``TorchBatchNorm`` computes on a batch sharded over a
+    mesh.
+
+    The two-pass mean and biased variance over the global N*H*W, in the
+    input's dtype promoted to at least float32 (float64 in the parity
+    tests); the running statistics updated with ``momentum`` and the
+    running variance with Bessel's factor n/(n-1) on the global n, so
+    they stay equal on every rank.  The sums cross the ranks through
+    ``torch.distributed.nn.functional.all_reduce``, which is
+    differentiable: the statistics' share of the input gradient comes
+    back from every rank (the in-place ``torch.distributed.all_reduce``
+    would drop it).  Two collectives forward, two backward.  Eval mode
+    is ``BatchNorm2d``'s, pointwise, with no collective.
+
+    ``nn.SyncBatchNorm`` computes the same on CUDA tensors only, with a
+    one-pass variance; this one runs under gloo on the CPU too."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        from torch.distributed.nn.functional import all_reduce
+
+        self._check_input_dim(x)
+        ch = x.shape[1]
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        # the local sums and the local count, summed over the ranks
+        total = all_reduce(torch.cat([xs.sum((0, 2, 3)),
+                                      xs.new_full((1,), x.numel() // ch)]))
+        n = total[ch]
+        mean = total[:ch] / n
+        centered = xs - mean[None, :, None, None]
+        var = all_reduce((centered * centered).sum((0, 2, 3))) / n
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            m = self.momentum
+            unbiased = var * (n / torch.clamp(n - 1, min=1))
+            for buf, new in ((self.running_mean, mean),
+                             (self.running_var, unbiased)):
+                buf.copy_(m * new.to(buf.dtype) + (1 - m) * buf)
+        y = centered * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight[None, :, None, None] + self.bias[
+            None, :, None, None]
+        return y.to(x.dtype)
+
+
+def global_batch_norm(module: nn.Module) -> nn.Module:
+    """Replace every ``BatchNorm2d`` inside ``module`` by a
+    :class:`GlobalBatchNorm2d` that holds the same parameters and
+    buffers (the same tensors, so an optimizer built before keeps them).
+    Returns ``module``."""
+    for name, child in module.named_children():
+        if type(child) is nn.BatchNorm2d:
+            bn = GlobalBatchNorm2d(child.num_features, child.eps,
+                                   child.momentum)
+            for key in ("weight", "bias", "running_mean", "running_var",
+                        "num_batches_tracked"):
+                setattr(bn, key, getattr(child, key))
+            bn.train(child.training)
+            setattr(module, name, bn)
+        else:
+            global_batch_norm(child)
+    return module
+
+
 def max_pool() -> nn.MaxPool2d:
     return nn.MaxPool2d(2, 2)
 

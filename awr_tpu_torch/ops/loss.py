@@ -12,7 +12,8 @@ DELTA = 0.01
 
 
 def smooth_l1_loss(x: torch.Tensor, y: torch.Tensor,
-                   sample_weight: Optional[torch.Tensor] = None
+                   sample_weight: Optional[torch.Tensor] = None,
+                   weight_sum: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Mean piecewise smooth-L1 over all elements (a float32 scalar).
 
@@ -21,6 +22,11 @@ def smooth_l1_loss(x: torch.Tensor, y: torch.Tensor,
     batch rows: the result is the plain mean over the weight-1 rows, and
     an all-zero weight gives 0 (the sum of weights is clamped to 1), not
     0/0.
+
+    ``weight_sum`` (with ``sample_weight``) replaces the sum of these
+    rows' weights as the divisor: under data parallelism the weight sum
+    of the global batch, so that the ranks' results add up to the loss
+    of the global batch, and a rank whose rows are all padding adds 0.
     """
     if x.shape != y.shape:
         raise ValueError(f"shapes differ: {tuple(x.shape)} and "
@@ -33,5 +39,6 @@ def smooth_l1_loss(x: torch.Tensor, y: torch.Tensor,
     w = sample_weight.to(torch.float32)
     w_full = w.reshape((-1,) + (1,) * (val.dim() - 1))
     per_sample = val[0].numel()
-    denom = torch.clamp(w.sum(), min=1.0)
+    denom = torch.clamp(w.sum() if weight_sum is None else weight_sum,
+                        min=1.0)
     return (val * w_full).sum() / (denom * per_sample)

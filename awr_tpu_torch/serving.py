@@ -12,10 +12,17 @@ switches a Predictor of either backbone to int8 inference,
 :meth:`Predictor.quantize_qat` after a validated QAT fine-tune.  The backbone runs
 in ``config.compute_dtype`` (float32 or bfloat16; the weights stay
 float32), the decode on its float32 map.
+
+Data mode (the JAX package's ``Predictor(mesh=make_mesh(...))``): with a
+:class:`~awr_tpu_torch.parallel.mesh.Mesh` of more than one device the
+Predictor holds one replica of the model on each, pads a batch to a
+bucket that divides by the mesh size, and runs each replica on its
+contiguous block of it, on its own device and stream.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 from typing import Optional
 
@@ -25,12 +32,14 @@ from torch import nn
 
 from awr_tpu_torch import export
 from awr_tpu_torch.config import Config, resolve_device
-from awr_tpu_torch.data.device import crop_normalize, crop_normalize_batch
+from awr_tpu_torch.data.device import (crop_normalize, crop_normalize_batch,
+                                       upload)
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import set_compute_dtype
 from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
+from awr_tpu_torch.parallel.mesh import data_sharding
 from awr_tpu_torch.training import qat
 from awr_tpu_torch.training.steps import infer, make_infer_step
 
@@ -83,14 +92,49 @@ class _RawProgram(_NormalizedProgram):
                                self.img_size)
 
 
+def _to_host(out: torch.Tensor):
+    """Start copying ``out`` to the host: on a GPU into a pinned host
+    tensor, ``non_blocking``, and an event recorded after the copy on the
+    device's current stream.  Returns ``(host tensor, event or None)``:
+    the host tensor is ready once the event has completed."""
+    if out.device.type != "cuda":
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(out.device))
+    return host, copied
+
+
+def _on(device: torch.device):
+    """``device`` as the current CUDA device (a no-op context off CUDA)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 class Predictor:
     def __init__(self, config: Config, model_or_state, paras=None,
-                 flip: Optional[int] = None, device=None):
+                 flip: Optional[int] = None, device=None, mesh=None):
         """``model_or_state``: the backbone as an ``nn.Module`` (moved to
         ``device`` and set to ``config.compute_dtype``), or a state dict in
         the reference's key layout.  ``device``: CUDA unless named;
-        without a GPU, name "cpu"."""
+        without a GPU, name "cpu".
+
+        ``mesh``: a :class:`~awr_tpu_torch.parallel.mesh.Mesh` of more than
+        one device serves in data mode (the module docstring); the model
+        then lives on ``mesh.devices[0]`` (``device`` must be that one or
+        None) and a replica on each other mesh device.  A mesh of one
+        device is no mesh, as in the JAX package."""
         self.cfg = config
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None:
+            for d in self.mesh.devices:
+                resolve_device(d)
+            if device is not None and torch.device(
+                    device) != self.mesh.devices[0]:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"first device {self.mesh.devices[0]}")
+            device = self.mesh.devices[0]
         self.device = resolve_device(device)
         self.paras = paras if paras is not None else config.paras
         self.flip = flip if flip is not None else config.flip
@@ -104,10 +148,22 @@ class Predictor:
                 model_or_state)
         self.model = model.to(self.device).eval()
         self._infer = make_infer_step(self.model, config)
+        self._replicate()
         # calibrated int8 activation scales by layer name, once quantized
         self.quant = None
         # the holdout scores of the last validated quantize_qat
         self.qat_validation = None
+
+    def _replicate(self) -> None:
+        """``self._replicas``: ``(device, model, infer step)`` of
+        ``self.model`` and, under a mesh, of a copy of it (weights,
+        BatchNorm statistics, quantization mode and int8 scales) on each
+        other mesh device."""
+        self._replicas = [(self.device, self.model, self._infer)]
+        for d in (self.mesh.devices[1:] if self.mesh is not None else ()):
+            replica = copy.deepcopy(self.model).to(d).eval()
+            self._replicas.append((d, replica,
+                                   make_infer_step(replica, self.cfg)))
 
     @classmethod
     def from_checkpoint(cls, config: Config, ckpt_dir: str,
@@ -141,7 +197,9 @@ class Predictor:
         activation scale, in batches of 32 (the percentile is taken per
         batch, then maxed over batches, as the JAX package does), through
         the float forward in the compute dtype; the int8 forward then
-        serves in it too.  The weights are reused unchanged.
+        serves in it too.  The weights are reused unchanged.  Under a mesh
+        the calibration runs on the first device and every replica gets
+        its scales.
         ``percentile``: the calibration statistic; the default p99.99
         clips activation outliers (the JAX package measured it better
         than the max on trained nets)."""
@@ -156,9 +214,11 @@ class Predictor:
         self._switch_int8()
 
     def _switch_int8(self) -> None:
-        """Serve the int8 forward with the scales in ``self.quant``."""
+        """Serve the int8 forward with the scales in ``self.quant``, on
+        every replica."""
         set_int8(self.model, {k: v.to(self.device)
                               for k, v in self.quant.items()})
+        self._replicate()
 
     def quantize_qat(self, labeled_batches, steps: Optional[int] = None,
                      lr: Optional[float] = None, percentile: float = 99.99,
@@ -185,7 +245,9 @@ class Predictor:
 
         The fine-tune and the scoring run on copies: an exception leaves
         the model, its mode, ``self.quant`` and ``qat_validation`` as
-        they were."""
+        they were.  Under a mesh they run on the first device, as the JAX
+        package's run on one device; every replica then gets the kept
+        weights and the scales."""
         d_steps, d_lr = qat.gap_scaled_recipe()
         model, quant, losses = qat.finetune(
             self.cfg, self.model, labeled_batches,
@@ -241,7 +303,10 @@ class Predictor:
         :mod:`awr_tpu_torch.ops.library`, so loading it needs them
         registered (``awr_tpu_torch.export.load`` imports them), and it
         runs on the kind of device it was traced on: the deviations from a
-        StableHLO payload (:mod:`awr_tpu_torch.export`)."""
+        StableHLO payload (:mod:`awr_tpu_torch.export`).  Under a mesh the
+        program is traced on the first replica's device and holds one
+        device's graph (a ``torch.export`` program runs on one device),
+        where the JAX package exports the mesh's sharded program."""
         B, size, dev = int(batch_size), self.cfg.img_size, self.device
         if raw_hw is None:
             program = _NormalizedProgram(self.model, self.cfg.kernel_size)
@@ -266,11 +331,37 @@ class Predictor:
 
     def _bucket(self, n: int) -> int:
         """Pad batch size up to a power-of-two bucket (min 8), so the
-        device sees a few batch shapes, whatever the clients send."""
+        device sees a few batch shapes, whatever the clients send.  Under
+        a mesh the bucket is also at least the mesh size and rounded up
+        to a multiple of it, so that it splits evenly (the JAX rule)."""
         b = 8
         while b < n:
             b *= 2
+        if self.mesh is not None:
+            size = self.mesh.size
+            b = max(b, size)
+            b = -(-b // size) * size
         return b
+
+    def _on_mesh(self, bucket: int, run):
+        """``run(device, infer, rows) -> joints on device`` for each
+        replica and its contiguous block ``rows`` of the ``bucket``, each
+        on its own device; each result copied back as :func:`_to_host`
+        copies.  Returns ``wait() -> (bucket, J, 3)`` numpy, which waits
+        on every device's event."""
+        copies = []
+        for (dev, _, infer), rows in zip(
+                self._replicas, data_sharding(self.mesh).slices(bucket)):
+            with _on(dev):
+                copies.append(_to_host(run(dev, infer, rows)))
+
+        def wait() -> np.ndarray:
+            for _, event in copies:
+                if event is not None:
+                    event.synchronize()
+            return np.concatenate([host.numpy() for host, _ in copies])
+
+        return wait
 
     def _pad(self, a: np.ndarray, bucket: int) -> np.ndarray:
         """Pad rows to ``bucket`` by repeating the last row."""
@@ -287,7 +378,12 @@ class Predictor:
         if n == 0:
             raise ValueError("empty batch: predict_normalized needs at "
                              "least one frame")
-        img = torch.from_numpy(self._pad(img_norm, self._bucket(n)))
+        bucket = self._bucket(n)
+        if self.mesh is not None:
+            img = self._pad(img_norm, bucket)
+            return self._on_mesh(bucket, lambda dev, infer, rows: infer(
+                upload(img[rows], dev)))()[:n]
+        img = torch.from_numpy(self._pad(img_norm, bucket))
         out = self._infer(img.to(self.device))
         return out[:n].cpu().numpy()
 
@@ -315,7 +411,10 @@ class Predictor:
         the same way, into a pinned host tensor, before an event recorded
         on the stream.  ``finalize`` waits on that event alone, so a second
         call's work, enqueued after it, never delays the first's result
-        (the overlap :mod:`awr_tpu_torch.batching` pipelines on)."""
+        (the overlap :mod:`awr_tpu_torch.batching` pipelines on).  Under a
+        mesh each replica crops and infers its block of the padded batch
+        on its device, each device records its own event, and
+        ``finalize`` waits on all of them."""
         # contiguous: ``torch.from_numpy`` refuses a view with negative
         # strides, which the pad no longer copies away on a GPU
         imgs = np.ascontiguousarray(imgs, np.float32)
@@ -328,6 +427,9 @@ class Predictor:
         cubes = np.asarray(cubes)
         centers_uvd = xyz2uvd_np(centers_xyz, self.paras, self.flip)
         bucket = self._bucket(B)
+        if self.mesh is not None:
+            return self._predict_async_mesh(imgs, centers_xyz, centers_uvd,
+                                            cubes, bucket)
         img_n, M_p = crop_normalize_batch(
             self._frames_on_device(imgs, bucket),
             self._pad(centers_uvd, bucket), self._pad(cubes, bucket),
@@ -340,15 +442,35 @@ class Predictor:
                                         cubes)
             return finalize
 
-        out_host = torch.empty(out_dev.shape, dtype=out_dev.dtype,
-                               pin_memory=True)
-        out_host.copy_(out_dev, non_blocking=True)
-        copied = torch.cuda.Event()
-        copied.record(torch.cuda.current_stream(self.device))
+        out_host, copied = _to_host(out_dev)
 
         def finalize() -> np.ndarray:
             copied.synchronize()
             return self.denormalize(out_host.numpy(), centers_xyz, M, cubes)
+
+        return finalize
+
+    def _predict_async_mesh(self, imgs, centers_xyz, centers_uvd, cubes,
+                            bucket):
+        """:meth:`predict_async` under a mesh."""
+        B = len(imgs)
+        frames = self._pad(imgs, bucket)
+        centers_p, cubes_p = (self._pad(centers_uvd, bucket),
+                              self._pad(cubes, bucket))
+        Ms = []
+
+        def run(dev, infer, rows):
+            img_n, M = crop_normalize_batch(
+                upload(frames[rows], dev), centers_p[rows], cubes_p[rows],
+                np.asarray(self.paras), self.cfg.img_size)
+            Ms.append(M)
+            return infer(img_n)
+
+        wait = self._on_mesh(bucket, run)
+
+        def finalize() -> np.ndarray:
+            return self.denormalize(wait()[:B], centers_xyz,
+                                    np.concatenate(Ms)[:B], cubes)
 
         return finalize
 

@@ -12,7 +12,8 @@ The JAX package's flags and defaults (``--dataset {nyu,icvl,msra,
 hands17}``, ``--data-dir``, ``--data-mode host`` by default: the
 reference's host chain), except: no ``--pallas``/``--no-pallas`` (a CUDA
 tensor always takes the hand-written kernels), and ``--device`` (default
-``cuda``).
+``cuda``).  Under ``python -m torch.distributed.run --nproc_per_node N``
+it evaluates data parallel, one process a GPU (``training/train.py``).
 """
 
 from __future__ import annotations
@@ -125,8 +126,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     cfg = build_config(args)
 
+    from awr_tpu_torch.parallel.multihost import initialize_distributed
     from awr_tpu_torch.training.trainer import Trainer
 
+    initialize_distributed(device=args.device)
     _, test = make_datasets(args, cfg)
     trainer = Trainer(cfg, test_data=test, device=args.device)
     if args.profile_dir:
@@ -142,4 +145,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from awr_tpu_torch.parallel.multihost import shutdown_distributed
+
     main()
+    shutdown_distributed()

@@ -14,13 +14,26 @@ bfloat16, so the encode, the decode, the decode's backward and the loss
 run in float32.  On CUDA tensors the encode, the decode and the decode's
 backward are the hand-written kernels.  No step calls ``.item()`` or otherwise waits on
 the device: metrics come back as device tensors.
+
+A step made for a ``DistributedDataParallel`` model is data parallel:
+it runs on one rank of the process group, on the rank's rows of the
+global batch (``parallel.multihost.rank_rows``), and computes what one
+device computes on the global batch.  Each loss is divided by the valid
+rows of the global (micro)batch, the losses the step returns are summed
+over the ranks, and the training loss is scaled by the world size,
+which DDP's gradient average divides out again (BatchNorm is global
+with more than one rank: ``models.common.global_batch_norm``).  The
+collectives go on the device's stream; the step still does not wait.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from awr_tpu_torch.data.device import train_preprocess
 from awr_tpu_torch.ops.decode import decode_offsets
@@ -42,17 +55,37 @@ def _forward(model, img):
     return _stacked(model(img[:, None].to(dtype)))
 
 
-def _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg):
+def _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg, w_sum=None):
     """Summed (offset, coord) losses over ``stacks`` and the joints
-    decoded from the last of them."""
+    decoded from the last of them; ``w_sum``: the divisor of weighted
+    losses (default: ``w``'s sum)."""
     loss_offset = loss_coord = 0.0
     for s in stacks:
         jt_pred = decode_offsets(preds[s], img, cfg.kernel_size)
         loss_coord = loss_coord + cfg.coord_weight * smooth_l1_loss(
-            jt_pred, jt_uvd, w)
+            jt_pred, jt_uvd, w, w_sum)
         loss_offset = loss_offset + cfg.dense_weight * smooth_l1_loss(
-            preds[s], offset_gt, w)
+            preds[s], offset_gt, w, w_sum)
     return loss_offset, loss_coord, jt_pred
+
+
+def _global_weight_sums(w, img, parts: int):
+    """The valid rows of each of the global batch's ``parts``
+    microbatches: this rank's weight sums (its rows all valid without
+    ``w``), summed over the ranks.  Returns the weights and the sums."""
+    if w is None:
+        w = torch.ones(img.shape[0], dtype=torch.float32, device=img.device)
+    sums = torch.stack([part.sum() for part in w.chunk(parts)])
+    dist.all_reduce(sums)
+    return w, list(sums.unbind())
+
+
+def _summed(values):
+    """The ranks' loss terms summed: the global batch's losses."""
+    total = torch.stack([torch.as_tensor(v, dtype=torch.float32)
+                         for v in values])
+    dist.all_reduce(total)
+    return list(total.unbind())
 
 
 def make_train_step(model, optimizer, cfg):
@@ -65,18 +98,21 @@ def make_train_step(model, optimizer, cfg):
     valid samples, BatchNorm statistics chained through them in order),
     takes one optimizer step and leaves the gradients in ``.grad``.
     Returns device tensors ``loss``, ``loss_offset``, ``loss_coord`` and
-    ``jt_uvd_pred``.
+    ``jt_uvd_pred``.  For a DDP model (the module docstring) the batch
+    is this rank's rows, the losses those of the global batch and
+    ``jt_uvd_pred`` this rank's rows.
     """
     accum = max(1, int(cfg.grad_accum))
+    distributed = isinstance(model, DistributedDataParallel)
 
-    def micro(img, jt_uvd, w):
+    def micro(img, jt_uvd, w, w_sum=None):
         offset_gt = encode_offsets(jt_uvd, img, cfg.kernel_size,
                                    cfg.feature_size)
         preds = _forward(model, img)
         nstack = preds.shape[0]
         stacks = (range(nstack) if cfg.supervise_all_stacks
                   else [nstack - 1])
-        return _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg)
+        return _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg, w_sum)
 
     def train_step(batch):
         img, jt_uvd, w = batch["img"], batch["jt_uvd"], batch.get("w")
@@ -87,7 +123,10 @@ def make_train_step(model, optimizer, cfg):
         mb = B // accum
         model.train()
         optimizer.zero_grad()
-        if w is None:
+        if distributed:
+            world = dist.get_world_size()
+            w, w_sums = _global_weight_sums(w, img, accum)
+        elif w is None:
             w_sums = [mb] * accum
         else:
             w_sums = [w[i * mb:(i + 1) * mb].sum() for i in range(accum)]
@@ -96,17 +135,24 @@ def make_train_step(model, optimizer, cfg):
         jt_preds = []
         for i in range(accum):
             part = slice(i * mb, (i + 1) * mb)
-            l_off, l_crd, jt_pred = micro(
-                img[part], jt_uvd[part], None if w is None else w[part])
-            loss = l_off + l_crd
-            # one microbatch keeps its loss as it is, as the JAX step
-            # does (an all-padding batch then gives 0, not 0/0)
-            share = 1.0 if accum == 1 else w_sums[i] / w_tot
-            (loss * share).backward()
+            # DDP reduces the gradients once, in the last backward
+            sync = (model.no_sync() if distributed and i < accum - 1
+                    else contextlib.nullcontext())
+            with sync:
+                l_off, l_crd, jt_pred = micro(
+                    img[part], jt_uvd[part], None if w is None else w[part],
+                    w_sums[i] if distributed else None)
+                loss = l_off + l_crd
+                # one microbatch keeps its loss as it is, as the JAX step
+                # does (an all-padding batch then gives 0, not 0/0)
+                share = 1.0 if accum == 1 else w_sums[i] / w_tot
+                (loss * (share * world if distributed else share)).backward()
             for k, v in enumerate((loss, l_off, l_crd)):
                 totals[k] = totals[k] + v.detach() * share
             jt_preds.append(jt_pred.detach())
         optimizer.step()
+        if distributed:
+            totals = _summed(totals)
         loss, l_off, l_crd = totals
         return dict(loss=loss, loss_offset=l_off, loss_coord=l_crd,
                     jt_uvd_pred=torch.cat(jt_preds))
@@ -117,20 +163,28 @@ def make_train_step(model, optimizer, cfg):
 def make_eval_step(model, cfg):
     """Returns ``eval_step(batch) -> metrics``: the model in eval mode,
     without autograd.  The losses SUM over every stack (reference
-    test.py:74-87); ``jt_uvd_pred`` is the last stack's decode."""
+    test.py:74-87); ``jt_uvd_pred`` is the last stack's decode.
+    For a DDP model the batch is this rank's rows and the losses those
+    of the global batch (the module docstring)."""
+    distributed = isinstance(model, DistributedDataParallel)
 
     @torch.no_grad()
     def eval_step(batch):
-        img, jt_uvd = batch["img"], batch["jt_uvd"]
+        img, jt_uvd, w = batch["img"], batch["jt_uvd"], batch.get("w")
         model.eval()
         preds = _forward(model, img)
         offset_gt = encode_offsets(jt_uvd, img, cfg.kernel_size,
                                    cfg.feature_size)
+        w_sum = None
+        if distributed:
+            w, (w_sum,) = _global_weight_sums(w, img, 1)
         l_off, l_crd, jt_pred = _losses(preds, range(preds.shape[0]), img,
-                                        jt_uvd, offset_gt, batch.get("w"),
-                                        cfg)
-        return dict(jt_uvd_pred=jt_pred, loss=l_crd + l_off,
-                    loss_offset=l_off, loss_coord=l_crd)
+                                        jt_uvd, offset_gt, w, cfg, w_sum)
+        loss = l_crd + l_off
+        if distributed:
+            loss, l_off, l_crd = _summed((loss, l_off, l_crd))
+        return dict(jt_uvd_pred=jt_pred, loss=loss, loss_offset=l_off,
+                    loss_coord=l_crd)
 
     return eval_step
 

@@ -10,6 +10,14 @@ Usage (on the GPU; add ``--device cpu`` on the CPU):
 Trains, tests and checkpoints every epoch under
 ``<output-dir>/<dataset>/checkpoint_<exp_id>/``; rerun with more
 ``--epochs`` to resume from the newest checkpoint there.
+
+Data parallel on N GPUs, one process each, under PyTorch's launcher:
+  python -m torch.distributed.run --nproc_per_node N \
+      -m awr_tpu_torch.training.train --synthetic --data-mode raw
+``--batch-size`` is the global batch, split over the ranks (the
+Trainer's docstring).  Without the launcher's variables the CLI trains
+on one device.  The JAX CLI instead takes every local device in one
+process by default.
 """
 
 from __future__ import annotations
@@ -61,8 +69,10 @@ def main(argv=None):
         over["step_timeout_s"] = args.step_timeout
     cfg = cfg.replace(**over)
 
+    from awr_tpu_torch.parallel.multihost import initialize_distributed
     from awr_tpu_torch.training.trainer import Trainer
 
+    initialize_distributed(device=args.device)
     train, test = make_datasets(args, cfg, train=True)
     trainer = Trainer(cfg, train_data=train, test_data=test,
                       device=args.device)
@@ -78,4 +88,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
+    from awr_tpu_torch.parallel.multihost import shutdown_distributed
+
     main()
+    shutdown_distributed()

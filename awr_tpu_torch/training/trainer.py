@@ -28,10 +28,34 @@ package's too:
   (parameters, Adam state and checkpoints float32; the encode, the
   decode and the loss on float32 maps).
 
-One GPU, no mesh: a partial last batch pads to a multiple of
-``grad_accum`` with a validity weight ``w`` that masks the padding rows
-out of the losses and gradients.  No step waits on the device: losses
-and joints stay on it until the print or the end of the epoch.
+A partial last batch pads to a multiple of ``grad_accum`` (times the
+world size) with a validity weight ``w`` that masks the padding rows out
+of the losses and gradients.  No step waits on the device: losses and
+joints stay on it until the print or the end of the epoch.
+
+Data parallel under a ``torch.distributed`` process group (one process
+per GPU, ``parallel/multihost.py``), as the JAX package's Trainer is
+over its mesh: each rank builds the model on its device (``cuda:
+LOCAL_RANK``, or the CPU when asked), wrapped in
+``DistributedDataParallel``, with BatchNorm over the global batch when
+there is more than one rank (``models.common.global_batch_norm``).
+Every rank runs the same loader order and keeps its rows of each
+global batch (``multihost.rank_rows``: with ``grad_accum``, its block
+of each global microbatch, as the JAX package shards each microbatch);
+the steps normalize the losses by the global batch's valid rows
+(``training/steps.py``), so a step computes the single-device step on
+the global batch.  Host mode loads the whole global batch on every rank
+(the dataset's one ``RandomState`` must be drawn in the reference's
+order), so each rank pays the host work of the whole batch; raw mode
+loads the whole batch's raw frames on every rank and draws the whole
+batch's augmentation from the ``(seed, epoch, step)`` generator, then
+keeps its rows.  The joints (and in raw mode the evaluator's feedback)
+are gathered to every rank, so the train MPE, the plateau scheduler,
+``best_records`` and the learning rate agree everywhere.  Only rank 0
+writes the log, the checkpoints (the unwrapped model's state dict, which
+``Predictor.from_checkpoint`` and a single-process Trainer load), the
+figures and the dumps; every rank restores.  Without a process group
+the Trainer is the one-device Trainer.
 """
 
 from __future__ import annotations
@@ -42,6 +66,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from awr_tpu_torch.config import Config, resolve_device
 from awr_tpu_torch.data import device as data_device
@@ -50,7 +76,9 @@ from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.evaluation import Evaluator
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
+from awr_tpu_torch.models.common import global_batch_norm
 from awr_tpu_torch.models.weights import load_reference_state_dict
+from awr_tpu_torch.parallel import multihost
 from awr_tpu_torch.training.checkpoints import CheckpointManager
 from awr_tpu_torch.training.optim import (PlateauScheduler,
                                           get_learning_rate, make_optimizer,
@@ -71,9 +99,14 @@ def augment_seed(seed: int, epoch: int, step: int) -> int:
 class Trainer:
     def __init__(self, config: Config, train_data=None, test_data=None,
                  workdir: Optional[str] = None, device=None):
-        """``device``: CUDA unless named; without a GPU, name "cpu"."""
+        """``device``: CUDA unless named; without a GPU, name "cpu".
+        Under a process group, CUDA without an index is the rank's GPU
+        (``multihost.local_device``)."""
         self.cfg = config
-        self.device = resolve_device(device)
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self.rank, self.world = multihost.world()
+        self.device = (multihost.local_device(device) if self.distributed
+                       else resolve_device(device))
         self.train_data = train_data
         self.test_data = test_data
 
@@ -81,10 +114,12 @@ class Trainer:
             config.output_dir, config.dataset,
             "checkpoint_" + config.exp_id)
         self.result_dir = os.path.join(self.work_dir, "results")
-        os.makedirs(self.result_dir, exist_ok=True)
         self.log_file = os.path.join(
             self.work_dir, f"{config.net}_{config.log_id}.log")
-        self._log_fh = open(self.log_file, "a")
+        self._log_fh = None
+        if self.rank == 0:
+            os.makedirs(self.result_dir, exist_ok=True)
+            self._log_fh = open(self.log_file, "a")
         self.print_msg("------------------- start -------------------",
                        stdout=False)
         for k, v in sorted(vars(config).items()):
@@ -100,24 +135,38 @@ class Trainer:
         self.model.reset_parameters(torch.Generator().manual_seed(
             config.seed))
         self.model.to(self.device)
+        # the module the steps call: the DDP wrapper under a process group
+        # (the checkpoints hold the model itself)
+        net = self.model
+        if self.distributed:
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+            if self.world > 1:
+                global_batch_norm(self.model)
+            # the running statistics are equal on every rank already
+            net = DistributedDataParallel(
+                self.model, broadcast_buffers=False,
+                device_ids=([self.device.index]
+                            if self.device.type == "cuda" else None))
         self.optimizer = make_optimizer(self.model.parameters(),
                                         config.optimizer, config.lr,
                                         config.weight_decay)
         # a partial batch pads to a multiple of the microbatch count
-        self._pad_multiple = max(1, int(config.grad_accum))
+        # times the world size
+        self._pad_multiple = max(1, int(config.grad_accum)) * self.world
         # the stream the steps run on; the stager thread copies on it
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
         self._gen = torch.Generator(self.device)
-        self._train_step = make_train_step(self.model, self.optimizer,
-                                           config)
-        self._eval_step = make_eval_step(self.model, config)
+        self._indices = {}  # device index tensors by their rows (_index)
+        self._train_step = make_train_step(net, self.optimizer, config)
+        self._eval_step = make_eval_step(net, config)
         ds = train_data if train_data is not None else test_data
         if ds is not None and self._raw(ds):
             self._raw_train_step = make_raw_train_step(
-                self.model, self.optimizer, config, ds.paras, ds.flip)
+                net, self.optimizer, config, ds.paras, ds.flip)
             self._raw_eval_step = make_raw_eval_step(
-                self.model, config, ds.paras, ds.flip)
+                net, config, ds.paras, ds.flip)
 
         self.best_records = {"epoch": 0, "best_epoch": 0, "MPE": 1e10,
                              "AUC": 0.0}
@@ -133,6 +182,9 @@ class Trainer:
 
     # ------------------------------------------------------------ utils
     def print_msg(self, msg: str, stdout: bool = True):
+        """Print and log ``msg``; on rank 0 only."""
+        if self.rank != 0:
+            return
         if stdout:
             print(msg)
         print(msg, file=self._log_fh)
@@ -167,25 +219,79 @@ class Trainer:
     def _raw(ds) -> bool:
         return getattr(ds, "mode", "host") == "raw"
 
+    def _padded(self, n: int) -> int:
+        """The size a batch of ``n`` rows pads to (:meth:`_pad`)."""
+        return n + (-n) % self._pad_multiple
+
+    def _rows(self, B: int) -> np.ndarray:
+        """This rank's rows of a padded global batch of ``B``."""
+        return multihost.rank_rows(B, self.world, self.rank,
+                                   self.cfg.grad_accum)
+
+    def _index(self, rows: np.ndarray) -> torch.Tensor:
+        """``rows`` as an index on the device, uploaded once for each
+        batch size through :meth:`_upload`: a pageable copy would make
+        the loop wait for the device's queued work."""
+        key = rows.tobytes()
+        if key not in self._indices:
+            self._indices[key] = self._upload(rows)
+        return self._indices[key]
+
     def _stage(self, raw, ds):
         """A batch of dataset ``ds`` -> (device inputs, X, valid count);
         runs on the staging thread.  Host mode: the normalized ``img``,
         ``jt_uvd`` and ``w`` on the device, X the padded host batch.  Raw
-        mode: the raw steps' inputs, X the crop parameters."""
+        mode: the raw steps' inputs, X the crop parameters.  Under a
+        process group the device inputs and the crop parameters are this
+        rank's rows; X in host mode stays the whole batch."""
         batch, n = self._pad(raw)
+        mine = batch
+        if self.distributed:
+            rows = self._rows(len(batch["w"]))
+            mine = {k: v[rows] for k, v in batch.items()}
         if not self._raw(ds):
-            dev = {k: self._upload(np.asarray(batch[k], np.float32))
+            dev = {k: self._upload(np.asarray(mine[k], np.float32))
                    for k in ("img", "jt_uvd", "w")}
             return dev, batch, n
-        centers_uvd = xyz2uvd_np(batch["center_xyz"], ds.paras,
+        centers_uvd = xyz2uvd_np(mine["center_xyz"], ds.paras,
                                  ds.flip).astype(np.float64)
-        p = crop_params_np(centers_uvd, batch["cube"], np.asarray(ds.paras),
+        p = crop_params_np(centers_uvd, mine["cube"], np.asarray(ds.paras),
                            self.cfg.img_size)
         f32 = lambda a: self._upload(np.asarray(a, np.float32))  # noqa: E731
-        dev = dict(img=f32(batch["img"]), jt_xyz=f32(batch["jt_xyz"]),
-                   centers_uvd=f32(centers_uvd), cubes=f32(batch["cube"]),
-                   w=f32(batch["w"]))
+        dev = dict(img=f32(mine["img"]), jt_xyz=f32(mine["jt_xyz"]),
+                   centers_uvd=f32(centers_uvd), cubes=f32(mine["cube"]),
+                   w=f32(mine["w"]))
         return dev, {k: self._upload(v) for k, v in p.items()}, n
+
+    def _gathered(self, metrics, src, raw_mode: bool, n: int):
+        """The joints of the whole (padded) batch and the evaluator's
+        feedback ``jt_xyz``, ``center_xyz``, ``M``, ``cube`` for it.
+        Under a process group they are gathered from every rank in one
+        ``all_gather`` (float32, what the evaluator reads), in the global
+        batch's order (raw mode; host mode reads its feedback from the
+        whole host batch ``src``)."""
+        keys = ("jt_xyz", "center_xyz", "M", "cube")
+        if not self.distributed:
+            return metrics["jt_uvd_pred"], {k: src[k] for k in keys}
+        parts = {"jt_uvd_pred": metrics["jt_uvd_pred"]}
+        if raw_mode:
+            parts.update({k: metrics[k] for k in keys})
+        flat = torch.cat([v.reshape(len(v), -1).float()
+                          for v in parts.values()], 1)
+        out = [torch.empty_like(flat) for _ in range(self.world)]
+        dist.all_gather(out, flat)
+        B = self._padded(n)
+        rows = np.concatenate([multihost.rank_rows(
+            B, self.world, r, self.cfg.grad_accum)
+            for r in range(self.world)])
+        full = torch.cat(out)[self._index(np.argsort(rows))]
+        got, at = {}, 0
+        for k, v in parts.items():
+            width = v[0].numel()
+            got[k] = full[:, at:at + width].reshape((B,) + v.shape[1:])
+            at += width
+        return got["jt_uvd_pred"], {k: (got if raw_mode else src)[k]
+                                    for k in keys}
 
     @staticmethod
     def _host(t) -> np.ndarray:
@@ -258,20 +364,24 @@ class Trainer:
             for ii, (dev, x, n) in enumerate(staged_iter):
                 if raw_mode:
                     self._gen.manual_seed(augment_seed(cfg.seed, epoch, ii))
+                    # the whole batch's draws; a rank keeps its rows'
+                    B = self._padded(n)
                     aug = data_device.draw_augment_params(
-                        self._gen, dev["img"].shape[0], *cfg.augment_para)
+                        self._gen, B, *cfg.augment_para)
+                    if self.distributed:
+                        rows = self._index(self._rows(B))
+                        aug = tuple(a[rows] for a in aug)
                     metrics = self._raw_train_step(dev, x, aug)
                     src = metrics
                 else:
                     metrics = self._train_step(dev)
                     src = x
-                fb = {k: src[k] for k in ("jt_xyz", "center_xyz", "M",
-                                          "cube")}
+                jt_pred, fb = self._gathered(metrics, src, raw_mode, n)
                 # keep everything on the device; the stream never stalls
                 losses.append(metrics["loss"])
                 epoch_losses.append(metrics["loss"])
                 l_off, l_crd = metrics["loss_offset"], metrics["loss_coord"]
-                pending.append((metrics["jt_uvd_pred"], n, fb))
+                pending.append((jt_pred, n, fb))
                 self._beat()
                 if (ii + 1) % cfg.print_freq == 0:
                     self.print_msg(
@@ -310,6 +420,10 @@ class Trainer:
             self.best_records["epoch"] = epoch  # resume cursor
             self.save(epoch)
             self._beat()
+        if self.distributed:
+            # every rank returns once rank 0's checkpoints are on disk
+            self.ckpt.wait()
+            dist.barrier()
 
     # ------------------------------------------------------------- eval
     def test(self, epoch: int = 0):
@@ -335,11 +449,13 @@ class Trainer:
             else:
                 metrics = self._eval_step(dev)
                 src = x
-            vis = bool(cfg.vis_freq) and (ii + 1) % cfg.vis_freq == 0
-            keep = ("jt_xyz", "center_xyz", "M", "cube") + (
-                ("img", "jt_uvd") if vis else ())
-            pending.append((metrics["loss"], metrics["jt_uvd_pred"], n,
-                            {k: src[k] for k in keep}, ii, vis))
+            # rank 0 plots: its first row is the batch's first
+            vis = (bool(cfg.vis_freq) and (ii + 1) % cfg.vis_freq == 0
+                   and self.rank == 0)
+            jt_pred, fb = self._gathered(metrics, src, raw_mode, n)
+            if vis:
+                fb.update(img=src["img"], jt_uvd=src["jt_uvd"])
+            pending.append((metrics["loss"], jt_pred, n, fb, ii, vis))
             self._beat()
         for loss, jt_dev, n, fb, ii, vis in pending:
             self._beat()
@@ -363,10 +479,11 @@ class Trainer:
                     dataset=cfg.dataset)
 
         mpe, mid, auc, pck, thresh = eval_tool.get_measures()
-        eval_tool.plot_pck(
-            os.path.join(self.work_dir, f"test_pck_epoch_{epoch}.png"),
-            pck, thresh)
-        if epoch in (0, -1):
+        if self.rank == 0:
+            eval_tool.plot_pck(
+                os.path.join(self.work_dir, f"test_pck_epoch_{epoch}.png"),
+                pck, thresh)
+        if epoch in (0, -1) and self.rank == 0:
             # reference writes the dump with the MPE in the filename
             # (train.py:217-221, test.py:105-108)
             eval_tool.save_predictions(
@@ -379,6 +496,9 @@ class Trainer:
 
     # ------------------------------------------------------ checkpoints
     def save(self, epoch: int):
+        """Checkpoint ``epoch`` (rank 0 only, asynchronously)."""
+        if self.rank != 0:
+            return
         plateau = ([self.plateau.lr, self.plateau.best,
                     float(self.plateau.num_bad)]
                    if self.plateau is not None else [0.0, 0.0, 0.0])
@@ -423,4 +543,5 @@ class Trainer:
 
     def close(self):
         self.ckpt.close()
-        self._log_fh.close()
+        if self._log_fh is not None:
+            self._log_fh.close()

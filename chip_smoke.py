@@ -95,7 +95,26 @@ float32, TF32 off (then bf16, phase ``bf16``):
   profiled window); priming at 480x640 and a 64-request burst against a
   25 ms deadline and an 8-frame queue (503s with Retry-After, then a
   plain request serves).  The decode launches equal the servers'
-  dispatches; the int8 kernels launch 20 and 3 times a dispatch.
+  dispatches; the int8 kernels launch 20 and 3 times a dispatch;
+- export: see ``phase_export``;
+- parallel: (a) the training CLI (the trainer phase's data, 2 epochs)
+  in a spawned process that is the one rank of an NCCL process group,
+  so the Trainer runs its data-parallel path (DDP; BatchNorm plain at
+  world size 1), against the same CLI in this process, in turns (one
+  process, DDP, DDP, one process), all with cuDNN's deterministic
+  algorithms: losses, test results, records and weights bit-equal,
+  exact launches, the warm epoch's train frames/s of each run;
+  (b) two spawned gloo ranks sharing the card (NCCL takes one rank a
+  GPU): DDP, the global BatchNorm and the global loss normalization in
+  one raw SGD step on their rows of a batch of 32 (rank 1's last 4 rows
+  padding) against one process's step on the 32 rows (loss rtol 1e-3,
+  parameters rtol 1e-3, atol 1e-5; running statistics equal on both
+  ranks), exact launches, the step's time; (c) Predictors on
+  ``make_mesh(devices=["cuda:0"] * 2)``: float32 hourglass_1 at B = 1,
+  12, 32, 256 and int8 resnet_18 (its scales bit-equal) against the
+  one-device Predictors, the mesh buckets, one decode (and 20 GEMMs and
+  3 deconvs) per replica a request, request times beside the one-device
+  Predictor's (both replicas share one card: no scaling is claimed).
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -158,6 +177,7 @@ from awr_tpu_torch.training.steps import (make_raw_eval_step,
                                           make_train_step)
 from awr_tpu_torch.training.trainer import Trainer
 from awr_tpu_torch.utils import png
+from awr_tpu_torch.utils.profiling import chip_peaks
 
 SEED = 0
 KERNEL_SIZE = 0.4
@@ -332,10 +352,23 @@ SERVER_INT8_FRAMES = 8
 EXPORT_BATCH = 32
 EXPORT_ATOL = {"normalized": 1e-5, "raw": 1e-2, "int8": 1e-3}
 EXPORT_REPS = 20
-# (HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s) from
-# NVIDIA's data sheets; dense int8 is half the with-sparsity figure
-PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
-         "H100": (3.35e12, 67e12, 1979e12)}
+# The parallel phase: (a) the train CLI at world size 1 under NCCL (DDP),
+# against the same CLI in this process, in turns; (b) two gloo ranks sharing the
+# card, one SGD step at B = 32 with rank 1's last PARALLEL_PAD rows
+# padding, held to tests/test_training.py's bars for a mesh against one
+# device, then PARALLEL_TIMED_STEPS timed steps; (c) Predictors on
+# make_mesh(devices=["cuda:0"] * 2) against one-device Predictors at
+# PARALLEL_BATCHES (float32 within EXPORT_ATOL["normalized"], int8 within
+# INT8_CPU_ATOL), request times at PARALLEL_TIMED_BATCHES.
+PARALLEL_PAD = 4
+PARALLEL_LR = 1e-3
+PARALLEL_LOSS_RTOL = 1e-3
+PARALLEL_PARAM_RTOL, PARALLEL_PARAM_ATOL = 1e-3, 1e-5
+PARALLEL_TIMED_STEPS = 5
+PARALLEL_BATCHES = (1, 12, 32, 256)
+PARALLEL_TIMED_BATCHES = (1, 32, 256)
+PARALLEL_REPS = 10
+PARALLEL_TIMEOUT_S = 600
 # float operations for each (sample, joint, pixel): decode (mask, logit,
 # max, exp, sum, distance, weight, three offset and three coordinate
 # products and sums); encode (three differences, squares and sums, sqrt,
@@ -353,10 +386,11 @@ def emit(obj) -> None:
 
 
 def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    raise RuntimeError(f"no peak rates known for {name!r}")
+    """(HBM bytes/s, float32 non-tensor FLOP/s, dense int8 tensor OP/s)
+    of the card named ``name``, from the port's one table of peak rates
+    (``awr_tpu_torch.utils.profiling.CHIP_PEAKS``)."""
+    p = chip_peaks(name)
+    return p.hbm_bytes_per_s, p.fp32_flops, p.int8_ops
 
 
 def decode_inputs(B, F=64, J=14, H=128, seed=SEED):
@@ -2813,6 +2847,345 @@ def phase_export(pred, pred_q, frames, centers):
     return launches
 
 
+def run_children(target, args_list, timeout=PARALLEL_TIMEOUT_S):
+    """Start one ``spawn`` process per argument tuple (CUDA needs spawn,
+    not fork), wait for all within ``timeout`` seconds, kill what is left,
+    and fail unless every one exited 0."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=args) for args in args_list]
+    for proc in procs:
+        proc.start()
+    deadline = time.monotonic() + timeout
+    for proc in procs:
+        proc.join(max(0.0, deadline - time.monotonic()))
+    hung = [proc.pid for proc in procs if proc.is_alive()]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    codes = [proc.exitcode for proc in procs]
+    if hung or any(codes):
+        raise AssertionError(f"{target.__name__}: processes {hung} hung, "
+                             f"exit codes {codes}")
+
+
+def trainer_run(argv):
+    """The train CLI for 2 epochs (``argv``: the trainer phase's), with
+    the train steps' losses kept on the card until the end, the epochs'
+    test results, the final weights, the launches and the second
+    epoch's train frames/s."""
+    from awr_tpu_torch.training import trainer as trainer_module
+
+    losses, make = [], trainer_module.make_raw_train_step
+
+    def make_spy(*args, **kw):
+        step = make(*args, **kw)
+
+        def spy(*step_args):
+            metrics = step(*step_args)
+            losses.append(metrics["loss"])
+            return metrics
+
+        return spy
+
+    trainer_module.make_raw_train_step = make_spy
+    try:
+        with trainer_marks() as marks:
+            reset_counts()
+            tr = train_cli.main(argv + ["--epochs", "2"])
+            torch.cuda.synchronize()
+            launches = counts()
+    finally:
+        trainer_module.make_raw_train_step = make
+    train_s = marks["test_start"][2] - marks["save_end"][1]
+    return {"losses": [float(x) for x in losses], "tests": marks["tests"],
+            "best_records": tr.best_records, "launches": launches,
+            "state": {k: v.cpu() for k, v in tr.model.state_dict().items()},
+            "warm_epoch_train_fps": TRAINER_FRAMES / train_s,
+            "distributed": tr.distributed, "world": tr.world,
+            "device": str(tr.device)}
+
+
+def ddp_trainer_rank(init, out, argv):
+    """(a): the only rank of an NCCL process group runs the train CLI,
+    whose Trainer wraps the model in DDP (BatchNorm stays plain at world
+    size 1)."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    dist.init_process_group("nccl", init_method="file://" + init,
+                            world_size=1, rank=0)
+    try:
+        torch.save(trainer_run(argv), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def shared_card_rank(rank, init, inputs, out):
+    """(b): rank ``rank`` of two gloo ranks on cuda:0: DDP, the global
+    BatchNorm and the global loss normalization, one raw SGD step on its
+    rows of the global batch, then timed steps."""
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from awr_tpu_torch.models.common import global_batch_norm
+    from awr_tpu_torch.parallel.multihost import rank_rows
+
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method="file://" + init,
+                            world_size=2, rank=rank)
+    try:
+        data = torch.load(inputs, weights_only=False)
+        cfg = data["cfg"]
+        model = build_model(cfg.net, cfg.jt_num)
+        model.load_state_dict(data["state"])
+        model = global_batch_norm(model.cuda())
+        ddp = DistributedDataParallel(model, device_ids=[0],
+                                      broadcast_buffers=False)
+        opt = make_optimizer(model.parameters(), "sgd", PARALLEL_LR)
+        step = make_raw_train_step(ddp, opt, cfg, cfg.paras, cfg.flip)
+        rows = torch.from_numpy(rank_rows(len(data["raw"]["img"]), 2, rank))
+        raw = {k: v[rows].cuda() for k, v in data["raw"].items()}
+        p = {k: v[rows].cuda() for k, v in data["p"].items()}
+        aug = tuple(a[rows].cuda() for a in data["aug"])
+        reset_counts()
+        m = step(raw, p, aug)
+        torch.cuda.synchronize()
+        res = {"launches": counts(), "loss": float(m["loss"]),
+               "state": {k: v.cpu() for k, v in model.state_dict().items()},
+               "rows": rows.tolist(), "w": raw["w"].tolist()}
+        times = []
+        for _ in range(PARALLEL_TIMED_STEPS):
+            t0 = time.perf_counter()
+            step(raw, p, aug)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res["step_ms"] = times
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_ddp_world1(root):
+    """(a) against the one-process train CLI on the same data, in turns
+    (one process, DDP, DDP, one process): every run bit-equal to the
+    first, exact launches, each run's warm-epoch frames/s."""
+    steps = -(-TRAINER_FRAMES // TRAIN_BATCH)
+    evals = -(-TRAINER_TEST_FRAMES // TRAIN_BATCH)
+    argv = ["--net", "hourglass_1", "--synthetic", "--data-mode", "raw",
+            "--synthetic-size", str(TRAINER_FRAMES),
+            "--synthetic-test-size", str(TRAINER_TEST_FRAMES),
+            "--batch-size", str(TRAIN_BATCH), "--device", "cuda"]
+    want = {"encode": 2 * (steps + evals), "decode": 2 * (steps + evals),
+            "decode_backward": 2 * steps}
+    runs = []
+    for i, side in enumerate(("plain", "ddp", "ddp", "plain")):
+        run_argv = argv + ["--output-dir", os.path.join(root, str(i))]
+        if side == "plain":
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                run = trainer_run(run_argv)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+        else:
+            out = os.path.join(root, f"{i}.pt")
+            run_children(ddp_trainer_rank, [(os.path.join(root, f"nccl{i}"),
+                                             out, run_argv)])
+            run = torch.load(out, weights_only=False)
+        check_launches(f"parallel (a) {side} run {i}", run["launches"], want)
+        if run["distributed"] != (side == "ddp") or run["world"] != 1:
+            raise AssertionError(f"parallel (a) run {i}: distributed "
+                                 f"{run['distributed']}, world {run['world']}")
+        runs.append((side, run))
+    first = runs[0][1]
+    res = {"order": [side for side, _ in runs],
+           "device": runs[1][1]["device"],
+           # the path's launches: the two DDP runs'
+           "launches": {k: sum(r["launches"][k] for s, r in runs
+                               if s == "ddp") for k in want},
+           "steps": len(first["losses"]), "loss_last": first["losses"][-1],
+           "tests": first["tests"], "cudnn_deterministic": True,
+           "warm_epoch_train_fps": {
+               side: [r["warm_epoch_train_fps"] for s, r in runs
+                      if s == side] for side in ("plain", "ddp")}}
+    for key in ("losses", "tests", "best_records"):
+        res[f"{key}_equal"] = all(r[key] == first[key] for _, r in runs)
+    res["weights_equal"] = all(torch.equal(r["state"][k], v)
+                               for _, r in runs
+                               for k, v in first["state"].items())
+    res["bit_equal"] = all(res[f"{key}_equal"] for key in
+                           ("losses", "tests", "best_records", "weights"))
+    if not (res["bit_equal"] and res["steps"] == 2 * steps):
+        raise AssertionError(f"parallel (a): {res}")
+    return res
+
+
+def parallel_shared_card(root, frames, joints, centers):
+    """(b) against one process's raw SGD step on the same 32 rows."""
+    cfg = hourglass_config(coord_weight=0.1)
+    B = len(frames)
+    state = new_model(cfg, "cpu").state_dict()
+    raw, p = raw_inputs(cfg, frames, joints, centers, "cpu")
+    w = torch.ones(B)
+    w[B - PARALLEL_PAD:] = 0.0
+    raw["w"] = w
+    aug = draw_augment_params(torch.Generator().manual_seed(SEED + 7), B,
+                              *cfg.augment_para)
+    inputs = os.path.join(root, "inputs.pt")
+    torch.save({"cfg": cfg, "state": state, "raw": raw, "p": p, "aug": aug},
+               inputs)
+    init = os.path.join(root, "gloo")
+    outs = [os.path.join(root, f"rank{r}.pt") for r in range(2)]
+    run_children(shared_card_rank,
+                 [(r, init, inputs, outs[r]) for r in range(2)])
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+
+    model = build_model(cfg.net, cfg.jt_num)
+    model.load_state_dict(state)
+    model.cuda()
+    step = make_raw_train_step(
+        model, make_optimizer(model.parameters(), "sgd", PARALLEL_LR), cfg,
+        cfg.paras, cfg.flip)
+    m = step({k: v.cuda() for k, v in raw.items()},
+             {k: v.cuda() for k, v in p.items()},
+             tuple(a.cuda() for a in aug))
+    loss = float(m["loss"])
+    want = {k: v.cpu() for k, v in model.state_dict().items()}
+    params = {n for n, _ in model.named_parameters()}
+    stats = [k for k in want if "running" in k]
+    param_ok = all(torch.allclose(ranks[0]["state"][k], want[k],
+                                  rtol=PARALLEL_PARAM_RTOL,
+                                  atol=PARALLEL_PARAM_ATOL) for k in params)
+    res = {"batch": B, "padding_rows": PARALLEL_PAD,
+           "rank_rows": [r["rows"][:1] + r["rows"][-1:] for r in ranks],
+           "rank1_w_tail": ranks[1]["w"][-PARALLEL_PAD - 1:],
+           "launches": [r["launches"] for r in ranks],
+           "loss_ranks": [r["loss"] for r in ranks], "loss_one_process": loss,
+           "loss_rel_err": abs(ranks[0]["loss"] - loss) / abs(loss),
+           "param_max_abs_err": max(float((ranks[0]["state"][k] - want[k])
+                                          .abs().max()) for k in params),
+           "params_within": param_ok,
+           "bn_stats_equal_on_ranks": all(
+               torch.equal(ranks[0]["state"][k], ranks[1]["state"][k])
+               for k in stats),
+           "bn_stats_max_abs_err_vs_one_process": max(
+               float((ranks[0]["state"][k] - want[k]).abs().max())
+               for k in stats),
+           "step_ms": [r["step_ms"] for r in ranks],
+           "step_ms_median": float(np.median(ranks[0]["step_ms"])),
+           "tolerances": {"loss_rtol": PARALLEL_LOSS_RTOL,
+                          "param_rtol": PARALLEL_PARAM_RTOL,
+                          "param_atol": PARALLEL_PARAM_ATOL}}
+    for r, launches in enumerate(res["launches"]):
+        check_launches(f"parallel (b) rank {r}", launches,
+                       {"encode": 1, "decode": 1, "decode_backward": 1})
+    if not (res["loss_rel_err"] <= PARALLEL_LOSS_RTOL and param_ok
+            and res["bn_stats_equal_on_ranks"]
+            and res["loss_ranks"][0] == res["loss_ranks"][1]):
+        raise AssertionError(f"parallel (b): {res}")
+    return res
+
+
+def mesh_bucket(n: int, size: int) -> int:
+    """The JAX Predictor's data-mesh bucket rule, written out."""
+    b = 8
+    while b < n:
+        b *= 2
+    b = max(b, size)
+    return -(-b // size) * size
+
+
+def parallel_data_mode(pred, pred_r, crops_q, frames, centers):
+    """(c): float32 hourglass_1 and int8 resnet_18 Predictors on two
+    replicas of cuda:0 against the one-device Predictors."""
+    from awr_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices=["cuda:0"] * 2)
+    fp = Predictor(pred.cfg, pred.model.state_dict(), mesh=mesh)
+    res = {"mesh": [str(d) for d in mesh.devices], "float32": {},
+           "int8": {}}
+    launches = {k["name"]: 0 for k in KERNELS}
+
+    def request(p, img):
+        reset_counts()
+        out = p.predict_normalized(img)
+        got = counts()
+        for k, n in got.items():
+            launches[k] += n
+        return out, got
+
+    for B in PARALLEL_BATCHES:
+        f, c = (np.resize(frames, (B,) + frames.shape[1:]),
+                np.resize(centers, (B, 3)))
+        img = normalized_crops(pred.cfg, f, c)
+        want = pred.predict_normalized(img)
+        got, n = request(fp, img)
+        check_launches(f"parallel (c) float32 B={B}", n, {"decode": 2})
+        err = float(np.abs(got - want).max())
+        res["float32"][B] = {"bucket": fp._bucket(B),
+                             "max_abs_err": err}
+        if (fp._bucket(B) != mesh_bucket(B, 2) or got.shape != want.shape
+                or not err <= EXPORT_ATOL["normalized"]):
+            raise AssertionError(f"parallel (c) float32 B={B}: "
+                                 f"{res['float32'][B]}")
+    q = Predictor(pred_r.cfg, pred_r.model.state_dict(), mesh=mesh)
+    one = Predictor(pred_r.cfg, pred_r.model.state_dict(), device="cuda")
+    q.quantize(crops_q)
+    one.quantize(crops_q)
+    scales_equal = all(torch.equal(q.quant[k], one.quant[k])
+                       for k in one.quant)
+    got, n = request(q, crops_q)
+    check_launches("parallel (c) int8", n, {"decode": 2, "int8_gemm": 40,
+                                            "deconv_int8": 6})
+    err = float(np.abs(got - one.predict_normalized(crops_q)).max())
+    res["int8"] = {"scales_equal": scales_equal, "max_abs_err": err,
+                   "atol": INT8_CPU_ATOL}
+    if not (scales_equal and err <= INT8_CPU_ATOL):
+        raise AssertionError(f"parallel (c) int8: {res['int8']}")
+    res["request_ms"] = {}
+    for B in PARALLEL_TIMED_BATCHES:
+        f, c = (np.resize(frames, (B,) + frames.shape[1:]),
+                np.resize(centers, (B, 3)))
+        res["request_ms"][B] = {
+            "mesh2": host_ms(lambda: fp.predict(f, c), PARALLEL_REPS),
+            "one_device": host_ms(lambda: pred.predict(f, c),
+                                  PARALLEL_REPS)}
+    return res, launches
+
+
+def phase_parallel(pred, pred_r, crops_q, frames, joints, centers):
+    """(a) DDP at world size 1 under NCCL, (b) two gloo ranks sharing
+    the card, (c) the Predictor's data mode on two replicas of the card
+    (see PARALLEL_PAD's comment).  Returns the launches of the path:
+    (a)'s and (b)'s ranks and (c)'s requests."""
+    out = {"phase": "parallel", "net": "hourglass_1"}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as root:
+        t0 = time.perf_counter()
+        out["ddp_world1"] = parallel_ddp_world1(os.path.join(root, "a"))
+        out["ddp_world1_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.join(root, "b"))
+        t0 = time.perf_counter()
+        out["shared_card_w2"] = parallel_shared_card(
+            os.path.join(root, "b"), frames, joints, centers)
+        out["shared_card_w2_s"] = time.perf_counter() - t0
+    out["data_mode"], served = parallel_data_mode(pred, pred_r, crops_q,
+                                                  frames, centers)
+    launches = dict(served)
+    for part in [out["ddp_world1"]["launches"]] + \
+            out["shared_card_w2"]["launches"]:
+        for k, n in part.items():
+            launches[k] += n
+    out["launches"] = launches
+    emit(out)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2863,6 +3236,8 @@ def main() -> int:
         phase_profile(f"train {net} {dtype}, B = 32", *steps[net][dtype])
     launches["server"] = phase_server(pred, frames, centers)
     launches["export"] = phase_export(pred, pred_q, frames, centers)
+    launches["parallel"] = phase_parallel(pred, pred_r, crops, frames,
+                                          joints, centers)
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

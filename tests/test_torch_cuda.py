@@ -684,3 +684,41 @@ def test_exported_program_runs_the_kernels(cuda, tmp_path, net):
     assert [y - x for x, y in zip(before, counters())] == per_call
     assert got.device.type == "cuda" and got.shape == (8, 14, 3)
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("net", ["hourglass_1", "resnet_18_int8"])
+def test_data_mode_predictor_on_two_replicas(cuda, net):
+    """A Predictor on ``make_mesh(devices=["cuda:0", "cuda:0"])``: two
+    replicas share the card, each runs its half of the padded bucket
+    (12 frames: bucket 16, 8 rows a replica) through its own kernels;
+    the joints are the one-device Predictor's within 1e-5 (int8: within
+    1e-3, the card's int8 bar against the CPU, with the scales
+    bit-equal), and a request launches one decode per replica (int8
+    also 20 GEMMs and 3 deconvs per replica)."""
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.parallel import make_mesh
+
+    cfg = (hourglass_config(img_size=64) if net == "hourglass_1" else
+           resnet_config(img_size=64))
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num),
+                                torch.Generator().manual_seed(0))
+    one = Predictor(cfg, model, device=cuda)
+    two = Predictor(cfg, model, mesh=make_mesh(devices=["cuda:0"] * 2))
+    img = np.random.RandomState(5).uniform(-1, 1, (12, 64, 64)).astype(
+        np.float32)
+    if net != "hourglass_1":
+        one.quantize(img)
+        two.quantize(img)
+        for k in one.quant:
+            assert torch.equal(one.quant[k], two.quant[k]), k
+    counters = lambda: (decode_cuda.LAUNCHES,  # noqa: E731
+                        int8_cuda.GEMM_LAUNCHES, int8_cuda.DECONV_LAUNCHES)
+    want = one.predict_normalized(img)
+    before = counters()
+    got = two.predict_normalized(img)
+    per_replica = [1, 0, 0] if net == "hourglass_1" else [1, 20, 3]
+    assert [y - x for x, y in zip(before, counters())] == [
+        2 * n for n in per_replica]
+    assert two._bucket(12) == 16
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 if net == "hourglass_1" else 1e-3)

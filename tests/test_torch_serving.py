@@ -10,7 +10,7 @@ import pathlib
 import numpy as np
 import pytest
 import torch
-from torch_port_weights import flax_variables
+from torch_port_weights import flax_variables, resnet_variables
 from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.config import hourglass_config as jax_hourglass_config
@@ -159,6 +159,172 @@ def test_from_torch_reads_reference_checkpoint(tmp_path, predictors, frames):
     imgs, _, centers = frames
     np.testing.assert_array_equal(loaded.predict(imgs, centers),
                                   pred.predict(imgs, centers))
+
+
+# ------------------------------------------------ data mode over a mesh
+
+MESH_IMG = 64
+INT8_ATOL = 1e-3  # tests/test_torch_quant.py's, which says why
+
+
+@pytest.fixture(scope="module")
+def mesh_predictors():
+    """resnet_18 at img 64, as tests/test_serving.py's mesh tests build
+    it but with ``resnet_variables``' seeded weights (the flax init's
+    N(0, 0.001) heads give near-constant joints): a maker of the JAX
+    Predictor on ``make_mesh(8)``, the port's on eight CPU replicas, and
+    a maker of the port's (one device without a mesh)."""
+    from awr_tpu.config import Config as JaxConfig
+    from awr_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from awr_tpu_torch.config import resnet_config
+    from awr_tpu_torch.parallel import make_mesh
+
+    jcfg = JaxConfig(net="resnet_18", kernel_size=1.0, img_size=MESH_IMG,
+                     batch_size=8, vis_freq=0, use_pallas=False,
+                     print_freq=1000)
+    variables = resnet_variables(18, 2, MESH_IMG, seed=0)[1]
+    cfg = resnet_config(18, img_size=MESH_IMG)
+
+    def port(mesh=None):
+        model = load_flax_variables(build_model("resnet_18", 14), variables)
+        return Predictor(cfg, model, device=None if mesh else "cpu",
+                         mesh=mesh)
+
+    return (lambda: JaxPredictor(jcfg, variables, mesh=jax_make_mesh(8)),
+            port(make_mesh(devices=["cpu"] * 8)), port)
+
+
+def mesh_inputs():
+    g = np.random.RandomState(7)
+    return g.uniform(-1, 1, (12, MESH_IMG, MESH_IMG)).astype(np.float32)
+
+
+def test_mesh_predictor_matches_jax_mesh_predictor(mesh_predictors):
+    """12 frames over 8 replicas (bucket 16, two rows a replica) against
+    the JAX Predictor on ``make_mesh(8)`` and the port's one-device
+    Predictor, at tests/test_serving.py's mesh bar (rtol and atol
+    1e-5); the replicas hold the same weights on their devices."""
+    jax_p8, p8, port = mesh_predictors
+    imgs = mesh_inputs()
+    assert p8._bucket(12) == 16 and p8._bucket(3) == 8
+    assert len(p8._replicas) == 8
+    for _, model, _ in p8._replicas[1:]:
+        for k, v in model.state_dict().items():
+            assert torch.equal(v, p8.model.state_dict()[k]), k
+    got = p8.predict_normalized(imgs)
+    assert got.shape == (12, 14, 3)
+    np.testing.assert_allclose(got, jax_p8().predict_normalized(imgs),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got, port().predict_normalized(imgs),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_mesh_predict_matches_single_predictor(mesh_predictors, frames):
+    """Raw frames through ``predict`` and ``predict_async`` on the mesh:
+    each replica crops and infers its block; the joints are the
+    one-device Predictor's (1e-5 relative, px and mm)."""
+    _, p8, port = mesh_predictors
+    imgs, _, centers = frames
+    want = port().predict(imgs, centers)
+    np.testing.assert_allclose(p8.predict(imgs, centers), want, rtol=1e-5)
+    np.testing.assert_allclose(p8.predict_async(imgs, centers)(), want,
+                               rtol=1e-5)
+
+
+def test_mesh_int8_matches_jax_mesh_int8(mesh_predictors):
+    """``quantize`` under the mesh calibrates once, on the first device:
+    its scales are bit-equal to the one-device Predictor's and within
+    1e-6 of the JAX mesh Predictor's, and every replica serves int8 with
+    them.  The joints are the one-device int8 Predictor's within
+    tests/test_serving.py's int8 bar for a mesh (rtol and atol 1e-4),
+    and the JAX mesh Predictor's within the port's int8 bar against the
+    JAX package (``INT8_ATOL``, 1e-3, tests/test_torch_quant.py: the two
+    BatchNorms round differently and a code on a rounding boundary
+    flips; measured 1.7e-4 here)."""
+    import jax
+
+    from awr_tpu_torch.models.quant import quant_layers
+    from awr_tpu_torch.models.weights import load_flax_quant
+    from awr_tpu_torch.parallel import make_mesh
+
+    jax_make, _, port = mesh_predictors
+    g = np.random.RandomState(3)
+    calib = g.uniform(-1, 1, (8, MESH_IMG, MESH_IMG)).astype(np.float32)
+    imgs = g.uniform(-1, 1, (12, MESH_IMG, MESH_IMG)).astype(np.float32)
+    p8, p1, jax_p8 = port(make_mesh(devices=["cpu"] * 8)), port(), jax_make()
+    p8.quantize(calib)
+    p1.quantize(calib)
+    jax_p8.quantize(calib)
+    for k in p1.quant:
+        assert torch.equal(p8.quant[k], p1.quant[k]), k
+    jax_scales = load_flax_quant(build_model("resnet_18", 14),
+                                 jax.device_get(jax_p8.quant))
+    assert jax_scales.keys() == p8.quant.keys()
+    for k, v in jax_scales.items():
+        np.testing.assert_allclose(float(p8.quant[k]), float(v), rtol=1e-6,
+                                   err_msg=k)
+    assert len(p8._replicas) == 8
+    for _, model, _ in p8._replicas:
+        layers = quant_layers(model)
+        assert {m.mode for m in layers.values()} == {"int8"}
+        for k, m in layers.items():
+            assert torch.equal(m.act_scale, p8.quant[k]), k
+    got = p8.predict_normalized(imgs)
+    np.testing.assert_allclose(got, p1.predict_normalized(imgs), rtol=1e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(got, jax_p8.predict_normalized(imgs),
+                               rtol=0, atol=INT8_ATOL)
+
+
+def test_mesh_bucket_equals_jax_rule(mesh_predictors):
+    """``_bucket`` under meshes of 1 to 8 devices equals the JAX
+    Predictor's for every batch of 1 to 300 (8 devices take 12 frames to
+    16; 6 take 1 to 12 and 9 to 18)."""
+    import jax
+
+    from awr_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from awr_tpu_torch.parallel import make_mesh
+
+    jax_make, p8, _ = mesh_predictors
+    jax_p = jax_make()
+    for size in range(1, 9):
+        p8.mesh = make_mesh(devices=["cpu"] * size) if size > 1 else None
+        jax_p.mesh = jax_make_mesh(size) if size > 1 else None
+        got = [p8._bucket(n) for n in range(1, 301)]
+        assert got == [jax_p._bucket(n) for n in range(1, 301)], size
+    p8.mesh = make_mesh(devices=["cpu"] * 8)
+    assert jax.device_count() >= 8
+    assert (p8._bucket(12), jax_p._bucket(12)) == (16, 16)
+
+
+def test_batching_walks_the_mesh_buckets_jax_walks(mesh_predictors):
+    """The port's ``BatchingPredictor`` over a 6-way mesh primes the
+    buckets the JAX one walks over the JAX 6-way mesh Predictor's
+    ``_bucket`` (12, 18, 36 up to 32 frames), serving real requests on
+    the six replicas."""
+    from types import SimpleNamespace
+
+    from awr_tpu.batching import BatchingPredictor as JaxBatching
+    from awr_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from awr_tpu_torch.batching import BatchingPredictor
+    from awr_tpu_torch.parallel import make_mesh
+
+    jax_make, _, port = mesh_predictors
+    jax_p = jax_make()
+    jax_p.mesh = jax_make_mesh(6)
+    shim = SimpleNamespace(
+        _bucket=jax_p._bucket, cfg=jax_p.cfg,
+        predict_async=lambda imgs, centers, cubes=None: (
+            lambda: np.zeros((len(imgs), 14, 3), np.float32)))
+    with JaxBatching(shim, max_batch=32, max_wait_ms=0.0) as bp:
+        seeded = bp.prime_service_model((60, 80), repeats=1)
+        want = list(bp.prime_stats["per_bucket"])
+    with BatchingPredictor(port(make_mesh(devices=["cpu"] * 6)),
+                           max_batch=32, max_wait_ms=0.0) as bp:
+        assert bp.prime_service_model((60, 80), repeats=1).keys() == \
+            seeded.keys()
+        got = list(bp.prime_stats["per_bucket"])
+    assert got == want == [12, 18, 36]
 
 
 def test_no_device_without_gpu_raises(monkeypatch):
