@@ -18,6 +18,16 @@
 // (B, H, W) float32. Outputs: out (B, J, 3) float32 and stats (B, J, 2)
 // float32, (m, s) of each joint.
 //
+// Row window (spatial serving, awr_tpu_torch/parallel/spatial.py): the
+// same kernel decodes rows [row0, row0 + rows) of an F x F map given as a
+// (B, 4J, rows, F) tensor, with the depth rows [img_row0, img_row0 + img_h)
+// of the (B, H, W) depth that the window's nearest resize reads. The sums
+// and (m, s) are then the window's: the plain
+// offset2joint_softmax_rows, merged across windows by
+// merge_softmax_bands. Pixel coordinates and source rows are those of
+// the global row. The full map is row0 = 0, rows = F, img_row0 = 0,
+// img_h = H.
+//
 // Bound: HBM reads. The map is the payload: 4 bytes * F^2 * 4J plus the
 // F^2 resized depth pixels, about 0.93 MB a sample at F = 64, J = 14 in
 // float32, so about 30 MB at B = 32: 8.9 us at the 3.35 TB/s of an H100
@@ -42,11 +52,12 @@
 // few per cent only at B = 1, below the smallest serving bucket (PERF.md).
 //
 // The pixel loop does no division: a prologue builds three shared-memory
-// tables a block, the F source-row offsets ((y H) / F) W and source columns
-// (x W) / F of the nearest resize, and the F pixel-centre coordinates
-// 2 (i + 0.5) / F - 1, evaluated in double and rounded once as the plain
-// version's float64 mesh is (so bit-equal to it). A thread walks its
-// pixel groups with a (row, column) cursor advanced by additions.
+// tables a block, the source-row offsets ((y H) / F - img_row0) W of its
+// rows and the F source columns (x W) / F of the nearest resize, and the
+// F pixel-centre coordinates 2 (i + 0.5) / F - 1, evaluated in double and
+// rounded once as the plain version's float64 mesh is (so bit-equal to
+// it). A thread walks its pixel groups with a (row, column) cursor
+// advanced by additions.
 //
 // decode_backward_kernel replaces the XLA VJP of the jnp decode that the
 // JAX package's custom_vjp recomputes through (awr_tpu/ops/decode.py:_bwd),
@@ -143,16 +154,20 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // The nearest-resize and pixel-centre tables of one block, in dynamic
-// shared memory: mesh[F] float, col[F] int, row[F] int (3 F * 4 bytes).
-// For V = 4, F % 4 == 0, so col is
-// 16-byte aligned.
+// shared memory: mesh[F] float, col[F] int, row[rows] int ((2 F + rows) *
+// 4 bytes). mesh and col are indexed by the map's column (and mesh_y by
+// the window's row: mesh + row0), row by the window's row: the offset of
+// the depth row that the global row row0 + i reads, in the depth rows
+// given from img_row0. For V = 4, F % 4 == 0, so col is 16-byte aligned.
 struct Tables {
   const float* mesh;
+  const float* mesh_y;
   const int* col;
   const int* row;
 };
 
-__device__ __forceinline__ Tables build_tables(int F, int H, int W) {
+__device__ __forceinline__ Tables build_tables(int F, int rows, int row0,
+                                               int H, int W, int img_row0) {
   extern __shared__ float4 smem[];
   float* mesh = reinterpret_cast<float*>(smem);
   int* col = reinterpret_cast<int*>(mesh + F);
@@ -161,15 +176,16 @@ __device__ __forceinline__ Tables build_tables(int F, int H, int W) {
     // pixel-centre coordinate 2 (i + 0.5) / F - 1 in double, rounded once
     mesh[i] = static_cast<float>(2.0 * (i + 0.5) / F - 1.0);
     col[i] = (i * W) / F;
-    row[i] = ((i * H) / F) * W;
   }
+  for (int i = threadIdx.x; i < rows; i += blockDim.x)
+    row[i] = (((row0 + i) * H) / F - img_row0) * W;
   __syncthreads();
-  return Tables{mesh, col, row};
+  return Tables{mesh, mesh + row0, col, row};
 }
 
-// A thread's place in its block's F x F plane: it takes every kThreads-th
-// group of V pixels, row by row; `step` moves to the next without
-// dividing.
+// A thread's place in its block's plane of F columns (F x F, or a window
+// of rows x F): it takes every kThreads-th group of V pixels, row by row;
+// `step` moves to the next without dividing.
 template <int V>
 struct Cursor {
   int y, x, dy, dx;
@@ -215,7 +231,7 @@ __device__ __forceinline__ void load_group(Group<V>& g, const T* ht,
     g.d[i] = __ldg(drow + tb.col[x + i]);
     g.cx[i] = tb.mesh[x + i];
   }
-  g.cy = tb.mesh[y];
+  g.cy = tb.mesh_y[y];
 }
 
 // Online-softmax partial: the max m of the logits seen and, scaled to
@@ -294,30 +310,33 @@ __device__ __forceinline__ Partial get(const float* src) {
   return q;
 }
 
-// Grid B * J; dynamic shared memory 12 F bytes.
+// Grid B * J; dynamic shared memory (2 F + rows) * 4 bytes. The window's
+// map is (B, 4J, rows, F); its depth (B, img_h, W), rows [img_row0,
+// img_row0 + img_h) of the (B, H, W) depth.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     decode_kernel(const T* __restrict__ offset, const float* __restrict__ img,
                   float* __restrict__ out, float* __restrict__ stats, int J,
-                  int F, int H, int W, float k) {
+                  int F, int rows, int row0, int H, int W, int img_row0,
+                  int img_h, float k) {
   const int bj = blockIdx.x;
   const int b = bj / J;
   const int j = bj - b * J;
-  const size_t P = static_cast<size_t>(F) * F;
+  const size_t P = static_cast<size_t>(rows) * F;
   const T* sample = offset + static_cast<size_t>(b) * 4 * J * P;
   const T* ht = sample + (3 * J + j) * P;
   const T* vx = sample + 3 * j * P;
-  const float* depth = img + static_cast<size_t>(b) * H * W;
-  const Tables tb = build_tables(F, H, W);
+  const float* depth = img + static_cast<size_t>(b) * img_h * W;
+  const Tables tb = build_tables(F, rows, row0, H, W, img_row0);
 
   Cursor<V> cur(F);
   Partial q = empty_partial();
-  while (cur.y < F) {
+  while (cur.y < rows) {
     Group<V> g[kUnroll];
     bool live[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      live[u] = cur.y < F;
+      live[u] = cur.y < rows;
       if (live[u]) load_group(g[u], ht, vx, P, depth, tb, F, cur.y, cur.x);
       cur.step(F);
     }
@@ -347,7 +366,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// Grid B * J; dynamic shared memory 12 F bytes.
+// Grid B * J; dynamic shared memory 12 F bytes (the full map's tables).
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     decode_backward_kernel(const T* __restrict__ offset,
@@ -364,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
   const size_t ht_off = (static_cast<size_t>(b) * 4 * J + 3 * J + j) * P;
   const size_t vx_off = (static_cast<size_t>(b) * 4 * J + 3 * j) * P;
   const float* depth = img + static_cast<size_t>(b) * H * W;
-  const Tables tb = build_tables(F, H, W);
+  const Tables tb = build_tables(F, F, 0, H, W, 0);
 
   const float m = stats[2 * static_cast<size_t>(bj)];
   const float s = stats[2 * static_cast<size_t>(bj) + 1];
@@ -418,13 +437,17 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-size_t table_bytes(int F) { return 3 * static_cast<size_t>(F) * 4; }
+size_t table_bytes(int F, int rows) {
+  return (2 * static_cast<size_t>(F) + rows) * 4;
+}
 
 template <typename T, int V>
 int launch(const void* offset, const float* img, float* out, float* stats,
-           int B, int J, int F, int H, int W, float k, cudaStream_t stream) {
-  decode_kernel<T, V><<<B * J, kThreads, table_bytes(F), stream>>>(
-      static_cast<const T*>(offset), img, out, stats, J, F, H, W, k);
+           int B, int J, int F, int rows, int row0, int H, int W,
+           int img_row0, int img_h, float k, cudaStream_t stream) {
+  decode_kernel<T, V><<<B * J, kThreads, table_bytes(F, rows), stream>>>(
+      static_cast<const T*>(offset), img, out, stats, J, F, rows, row0, H, W,
+      img_row0, img_h, k);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -433,7 +456,8 @@ int launch_backward(const void* offset, const float* img, const float* out,
                     const float* stats, const float* grad_out, void* grad,
                     int B, int J, int F, int H, int W, float k,
                     cudaStream_t stream) {
-  decode_backward_kernel<T, V><<<B * J, kThreads, table_bytes(F), stream>>>(
+  decode_backward_kernel<T, V><<<B * J, kThreads, table_bytes(F, F),
+                                 stream>>>(
       static_cast<const T*>(offset), img, out, stats, grad_out,
       static_cast<T*>(grad), J, F, H, W, k);
   return static_cast<int>(cudaGetLastError());
@@ -442,25 +466,34 @@ int launch_backward(const void* offset, const float* img, const float* out,
 }  // namespace
 
 // Launchers: enqueue on `stream`, never synchronize, return the launch's
-// CUDA error (0 when it was accepted). F % 4 == 0 takes 4-pixel groups, which need map pointers aligned to 4
-// elements (the wrapper passes such pointers); other F, single pixels.
+// CUDA error (0 when it was accepted). F % 4 == 0 takes 4-pixel groups,
+// which need map pointers aligned to 4 elements (the wrapper passes such
+// pointers); other F, single pixels. The decode takes the window rows
+// [row0, row0 + rows) of the F x F map and the depth rows [img_row0,
+// img_row0 + img_h) of the (B, H, W) depth (the full map: 0, F, 0, H).
 extern "C" int awr_decode_f32(const void* offset, const float* img,
                               float* out, float* stats, int B, int J, int F,
-                              int H, int W, float k, cudaStream_t stream) {
-  return F % 4 == 0 ? launch<float, 4>(offset, img, out, stats, B, J, F, H,
-                                       W, k, stream)
-                    : launch<float, 1>(offset, img, out, stats, B, J, F, H,
-                                       W, k, stream);
+                              int rows, int row0, int H, int W, int img_row0,
+                              int img_h, float k, cudaStream_t stream) {
+  return F % 4 == 0 ? launch<float, 4>(offset, img, out, stats, B, J, F,
+                                       rows, row0, H, W, img_row0, img_h, k,
+                                       stream)
+                    : launch<float, 1>(offset, img, out, stats, B, J, F,
+                                       rows, row0, H, W, img_row0, img_h, k,
+                                       stream);
 }
 
 extern "C" int awr_decode_bf16(const void* offset, const float* img,
                                float* out, float* stats, int B, int J, int F,
-                               int H, int W, float k, cudaStream_t stream) {
+                               int rows, int row0, int H, int W, int img_row0,
+                               int img_h, float k, cudaStream_t stream) {
   return F % 4 == 0
-             ? launch<__nv_bfloat16, 4>(offset, img, out, stats, B, J, F, H,
-                                        W, k, stream)
-             : launch<__nv_bfloat16, 1>(offset, img, out, stats, B, J, F, H,
-                                        W, k, stream);
+             ? launch<__nv_bfloat16, 4>(offset, img, out, stats, B, J, F,
+                                        rows, row0, H, W, img_row0, img_h, k,
+                                        stream)
+             : launch<__nv_bfloat16, 1>(offset, img, out, stats, B, J, F,
+                                        rows, row0, H, W, img_row0, img_h, k,
+                                        stream);
 }
 
 extern "C" int awr_decode_backward_f32(const void* offset, const float* img,

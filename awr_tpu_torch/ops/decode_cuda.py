@@ -1,12 +1,14 @@
 """Wrappers of the hand-written CUDA decode kernels (``csrc/decode.cu``):
-the forward, which also gives the softmax statistics, and the backward,
-which takes them.
+the forward, which also gives the softmax statistics, of a whole map or
+of a window of its rows (spatial serving), and the backward, which takes
+them.
 
 The kernels' library is built and loaded at the first call
 (:mod:`awr_tpu_torch.kernels`), so this module imports without a GPU or
 ``nvcc``.  Their plain versions are
 :func:`awr_tpu_torch.ops.functional.offset2joint_softmax` (with
-:func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_stats`) and
+:func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_stats`),
+:func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_rows` and
 :func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_backward`.
 Both kernels give each (sample, joint) one block.
 """
@@ -22,6 +24,7 @@ from awr_tpu_torch import kernels
 
 # Kernel launches made by each wrapper since its count was last reset.
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
 BACKWARD_LAUNCHES = 0
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -36,8 +39,9 @@ UNROLL = 2
 @functools.lru_cache(maxsize=None)
 def _launcher(dtype):
     fn = getattr(kernels.load("decode"), f"awr_decode_{_DTYPES[dtype]}")
-    # offset, img, out, stats, B, J, F, H, W, kernel_size, stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+    # offset, img, out, stats, B, J, F, rows, row0, H, W, img_row0, img_h,
+    # kernel_size, stream
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -55,15 +59,20 @@ def _backward_launcher(dtype):
     return fn
 
 
-def _check_inputs(offset: torch.Tensor, img: torch.Tensor) -> None:
+def _check_inputs(offset: torch.Tensor, img: torch.Tensor,
+                  window: bool = False) -> None:
+    """``window``: ``offset`` is (B, 4J, R, F), R rows of an F x F map;
+    else it is the square map."""
     if offset.dtype not in _DTYPES or img.dtype != torch.float32:
         raise TypeError(f"decode kernel takes a float32 or bfloat16 map "
                         f"and float32 depth, got {offset.dtype} and "
                         f"{img.dtype}")
     if (offset.dim() != 4 or offset.numel() == 0 or offset.shape[1] % 4
-            or offset.shape[2] != offset.shape[3] or img.dim() != 3
-            or img.shape[0] != offset.shape[0] or img.numel() == 0):
-        raise ValueError(f"decode kernel takes non-empty (B, 4J, F, F) and "
+            or not (window or offset.shape[2] == offset.shape[3])
+            or img.dim() != 3 or img.shape[0] != offset.shape[0]
+            or img.numel() == 0):
+        shape = "(B, 4J, R, F)" if window else "(B, 4J, F, F)"
+        raise ValueError(f"decode kernel takes non-empty {shape} and "
                          f"(B, H, W), got {tuple(offset.shape)} and "
                          f"{tuple(img.shape)}")
     if not (offset.is_contiguous() and img.is_contiguous()):
@@ -92,6 +101,26 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _decode(offset, img, kernel_size, row0, img_row0, H):
+    """Launch the decode on rows [row0, row0 + R) of the map (``offset``
+    (B, 4J, R, F)), the depth rows [img_row0, img_row0 + h) of a (B, H,
+    W) depth given as ``img`` (B, h, W)."""
+    B, C, R, F = offset.shape
+    J = C // 4
+    h, W = img.shape[1:]
+    offset = _aligned(offset)
+    out = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
+    stats = torch.empty((B, J, 2), dtype=torch.float32, device=offset.device)
+    launch = _launcher(offset.dtype)
+    with torch.cuda.device(offset.device):
+        err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
+                     stats.data_ptr(), B, J, F, R, row0, H, W, img_row0, h,
+                     float(kernel_size), _stream(offset.device))
+    if err != 0:
+        raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
+    return out, stats
+
+
 def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
                               kernel_size: float):
     """(B, 4J, F, F) float32/bfloat16 map + (B, H, W) float32 depth, both
@@ -100,21 +129,35 @@ def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
     :func:`offset2joint_softmax_backward_cuda` takes)."""
     global LAUNCHES
     _check_inputs(offset, img)
-    B, C, F, _ = offset.shape
-    J = C // 4
-    H, W = img.shape[1:]
-    offset = _aligned(offset)
-    out = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
-    stats = torch.empty((B, J, 2), dtype=torch.float32, device=offset.device)
-    launch = _launcher(offset.dtype)
-    with torch.cuda.device(offset.device):
-        err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
-                     stats.data_ptr(), B, J, F, H, W, float(kernel_size),
-                     _stream(offset.device))
-    if err != 0:
-        raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
+    result = _decode(offset, img, kernel_size, 0, 0, img.shape[1])
     LAUNCHES += 1
-    return out, stats
+    return result
+
+
+def offset2joint_softmax_rows_cuda(offset: torch.Tensor, img: torch.Tensor,
+                                   kernel_size: float, row0: int,
+                                   img_row0: int, img_rows: int):
+    """The decode of a row window, as
+    :func:`~awr_tpu_torch.ops.functional.offset2joint_softmax_rows`:
+    ``offset`` (B, 4J, R, F) float32/bfloat16 holds rows [row0, row0 + R)
+    of an F x F map, ``img`` (B, h, W) float32 the rows [img_row0,
+    img_row0 + h) of its (B, ``img_rows``, W) depth, both contiguous on
+    one CUDA device -> ((B, J, 3) joints, (B, J, 2) statistics (max,
+    sum)) of the window, float32."""
+    global ROWS_LAUNCHES
+    _check_inputs(offset, img, window=True)
+    R, F = offset.shape[2:]
+    h = img.shape[1]
+    first, last = (row0 * img_rows) // F, ((row0 + R - 1) * img_rows) // F
+    if not (0 <= row0 and row0 + R <= F and 0 <= img_row0 <= first
+            and last < img_row0 + h <= img_rows):
+        raise ValueError(f"decode window: map rows [{row0}, {row0 + R}) of "
+                         f"{F} read depth rows [{first}, {last}], not all "
+                         f"in the {h} given from {img_row0} of {img_rows}")
+    result = _decode(offset, img, kernel_size, int(row0), int(img_row0),
+                     int(img_rows))
+    ROWS_LAUNCHES += 1
+    return result
 
 
 def offset2joint_softmax_backward_cuda(offset: torch.Tensor,

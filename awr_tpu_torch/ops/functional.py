@@ -52,21 +52,35 @@ def pixel_mesh(feature_size: int, dtype=torch.float32, device="cpu"):
             torch.tensor(mesh_y, dtype=dtype, device=device))
 
 
-def offset2joint_softmax(offset: torch.Tensor, img: torch.Tensor,
-                         kernel_size: float) -> torch.Tensor:
-    """Adaptive weighted decode: (B, 4J, F, F) map -> (B, J, 3) joints.
+def resize_nearest_rows(img: torch.Tensor, size: int, row0: int,
+                        rows: int, img_row0: int = 0,
+                        img_rows: int | None = None) -> torch.Tensor:
+    """Rows [row0, row0 + rows) of the (size, size) nearest resize of a
+    (B, H, W) depth, given only its rows [img_row0, img_row0 + h) as
+    ``img`` (B, h, W); H = ``img_rows`` (default h).  Row i reads the
+    depth's global row ``floor(i*H/size)``, as :func:`resize_nearest`."""
+    H = img.shape[-2] if img_rows is None else img_rows
+    src = (np.arange(row0, row0 + rows) * H) // size - img_row0
+    if len(src) and (src[0] < 0 or src[-1] >= img.shape[-2]):
+        raise ValueError(f"map rows [{row0}, {row0 + rows}) read depth rows "
+                         f"[{src[0] + img_row0}, {src[-1] + img_row0}], "
+                         f"outside the {img.shape[-2]} given from "
+                         f"{img_row0}")
+    cols = (np.arange(size) * img.shape[-1]) // size
+    return (img.index_select(-2, torch.from_numpy(src).to(img.device))
+            .index_select(-1, torch.from_numpy(cols).to(img.device)))
 
-    Each joint is the softmax(30 * heatmap)-weighted mean over the F*F
-    pixels of ``pixel (u, v, depth) + offset * (k - k * heatmap)``, with
-    heatmap and offset zeroed on background pixels.  Computed in float32
-    (a bfloat16 map is upcast, as the kernel does) or float64.
-    """
-    B, C, F, _ = offset.shape
+
+def _softmax_decode(offset: torch.Tensor, img_f: torch.Tensor,
+                    mesh_x: torch.Tensor, mesh_y: torch.Tensor,
+                    kernel_size: float) -> torch.Tensor:
+    """The decode of a (B, 4J, R, F) map over its R*F pixels, given their
+    resized depth ``img_f`` (B, R, F) and coordinates (R, F)."""
+    B, C, R, F = offset.shape
     J = C // 4
-    P = F * F
+    P = R * F
     dtype = torch.promote_types(offset.dtype, torch.float32)
-    img_f = resize_nearest(img, F).to(dtype).reshape(B, P)
-    mesh_x, mesh_y = pixel_mesh(F, dtype, offset.device)
+    img_f = img_f.to(dtype).reshape(B, P)
     # the coordinate term uses the raw resized depth: the reference
     # masks the heatmap and the offsets, not the coordinates
     coords = torch.stack([mesh_x.reshape(P).expand(B, P),
@@ -82,6 +96,71 @@ def offset2joint_softmax(offset: torch.Tensor, img: torch.Tensor,
     term_vec = (vec.reshape(B, J, 3, P) * (w * dis)[:, :, None]).sum(-1)
     term_coord = torch.einsum("bjp,bpa->bja", w, coords)
     return term_vec + term_coord
+
+
+def _softmax_stats(offset: torch.Tensor, img_f: torch.Tensor) -> torch.Tensor:
+    """The softmax statistics of a (B, 4J, R, F) map over its R*F pixels,
+    given their resized depth ``img_f`` (B, R, F)."""
+    B, C, R, F = offset.shape
+    J = C // 4
+    dtype = torch.promote_types(offset.dtype, torch.float32)
+    mask = (img_f.to(dtype).reshape(B, 1, R * F) < FG_THRESHOLD).to(dtype)
+    # spelled as _softmax_decode spells the logit, so the max is
+    # bit-equal to the one its softmax takes
+    logit = (offset.to(dtype).reshape(B, C, R * F)[:, 3 * J:] * mask
+             * SOFTMAX_TEMP)
+    m = logit.amax(-1)
+    return torch.stack([m, torch.exp(logit - m[..., None]).sum(-1)], dim=-1)
+
+
+def offset2joint_softmax(offset: torch.Tensor, img: torch.Tensor,
+                         kernel_size: float) -> torch.Tensor:
+    """Adaptive weighted decode: (B, 4J, F, F) map -> (B, J, 3) joints.
+
+    Each joint is the softmax(30 * heatmap)-weighted mean over the F*F
+    pixels of ``pixel (u, v, depth) + offset * (k - k * heatmap)``, with
+    heatmap and offset zeroed on background pixels.  Computed in float32
+    (a bfloat16 map is upcast, as the kernel does) or float64.
+    """
+    F = offset.shape[2]
+    dtype = torch.promote_types(offset.dtype, torch.float32)
+    return _softmax_decode(offset, resize_nearest(img, F),
+                           *pixel_mesh(F, dtype, offset.device), kernel_size)
+
+
+def offset2joint_softmax_rows(offset: torch.Tensor, img: torch.Tensor,
+                              kernel_size: float, row0: int,
+                              img_row0: int = 0,
+                              img_rows: int | None = None):
+    """The decode of a row window: ``offset`` (B, 4J, R, F) holds rows
+    [row0, row0 + R) of an F x F map, ``img`` (B, h, W) rows [img_row0,
+    img_row0 + h) of its (B, H, W) depth (H = ``img_rows``, default h).
+    Returns ((B, J, 3) joints of the softmax over the window's R*F
+    pixels, (B, J, 2) its statistics (max, sum)), which
+    :func:`merge_softmax_bands` merges over the windows of a map.  The
+    pixel coordinates 2(i + 0.5)/F - 1 and the nearest resize's source
+    rows floor(i*H/F) are those of the global row i."""
+    R, F = offset.shape[2:]
+    dtype = torch.promote_types(offset.dtype, torch.float32)
+    img_f = resize_nearest_rows(img, F, row0, R, img_row0, img_rows)
+    mesh_x, mesh_y = pixel_mesh(F, dtype, offset.device)
+    return (_softmax_decode(offset, img_f, mesh_x[row0:row0 + R],
+                            mesh_y[row0:row0 + R], kernel_size),
+            _softmax_stats(offset, img_f))
+
+
+def merge_softmax_bands(parts):
+    """Merge the decodes of a map's row windows (each ``(joints, stats)``
+    of :func:`offset2joint_softmax_rows`, on one device; empty windows
+    left out) into the whole map's ``(joints, stats)``: with m the max
+    of the windows' maxima, each window's weight is w_b = s_b exp(m_b -
+    m), the sum s = sum_b w_b and the joints sum_b joints_b w_b / s (a
+    window's joints are its unnormalized weighted sum over s_b)."""
+    m = torch.stack([st[..., 0] for _, st in parts]).amax(0)
+    w = [st[..., 1] * torch.exp(st[..., 0] - m) for _, st in parts]
+    s = sum(w)
+    out = sum(o * wb[..., None] for (o, _), wb in zip(parts, w))
+    return out / s[..., None], torch.stack([m, s], dim=-1)
 
 
 def joint2offset(jt_uvd: torch.Tensor, img: torch.Tensor,
@@ -118,17 +197,7 @@ def offset2joint_softmax_stats(offset: torch.Tensor,
     of the masked logit ``30 * heatmap * mask`` and ``s = sum exp(logit -
     m)``, in float32 (a bfloat16 map is upcast) or float64.  The CUDA
     decode writes them beside the joints, and its backward reads them."""
-    B, C, F, _ = offset.shape
-    J = C // 4
-    dtype = torch.promote_types(offset.dtype, torch.float32)
-    img_f = resize_nearest(img, F).to(dtype).reshape(B, 1, F * F)
-    mask = (img_f < FG_THRESHOLD).to(dtype)
-    # spelled as offset2joint_softmax spells the logit, so the max is
-    # bit-equal to the one its softmax takes
-    logit = (offset.to(dtype).reshape(B, C, F * F)[:, 3 * J:] * mask
-             * SOFTMAX_TEMP)
-    m = logit.amax(-1)
-    return torch.stack([m, torch.exp(logit - m[..., None]).sum(-1)], dim=-1)
+    return _softmax_stats(offset, resize_nearest(img, offset.shape[2]))
 
 
 def offset2joint_softmax_backward(offset: torch.Tensor, img: torch.Tensor,

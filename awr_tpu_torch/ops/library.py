@@ -13,6 +13,7 @@ loads (:mod:`awr_tpu_torch.export`).
 | op | CUDA | CPU |
 | --- | --- | --- |
 | ``decode`` | ``decode_cuda.offset2joint_softmax_cuda`` | ``functional.offset2joint_softmax`` and ``_stats`` |
+| ``decode_rows`` | ``decode_cuda.offset2joint_softmax_rows_cuda`` | ``functional.offset2joint_softmax_rows`` |
 | ``decode_backward`` | ``decode_cuda.offset2joint_softmax_backward_cuda`` | the VJP of ``functional.offset2joint_softmax`` |
 | ``encode`` | ``encode_cuda.joint2offset_cuda`` | ``functional.joint2offset`` |
 | ``int8_matmul`` | ``int8_cuda.int8_matmul_cuda`` | ``int8.int8_matmul`` |
@@ -140,6 +141,34 @@ def _decode_grad(ctx, grad_out, _grad_stats):
 
 
 decode.register_autograd(_decode_grad, setup_context=_decode_setup_context)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::decode_rows", mutates_args=(),
+                         device_types="cpu")
+def decode_rows(offset: Tensor, img: Tensor, kernel_size: float, row0: int,
+                img_row0: int, img_rows: int) -> tuple[Tensor, Tensor]:
+    """The decode of rows [row0, row0 + R) of an F x F map, (B, 4J, R, F),
+    given the rows [img_row0, img_row0 + h) of its (B, ``img_rows``, W)
+    depth, (B, h, W) -> ((B, J, 3) joints, (B, J, 2) softmax statistics
+    (max, sum)) of the window, float32 (float64 for a float64 map): a
+    spatial band's decode, which
+    :func:`~awr_tpu_torch.ops.functional.merge_softmax_bands` merges.
+    No gradient: spatial mode serves only."""
+    return functional.offset2joint_softmax_rows(
+        offset.contiguous(), img.contiguous(), kernel_size, row0, img_row0,
+        img_rows)
+
+
+@decode_rows.register_kernel("cuda")
+def _decode_rows_cuda(offset, img, kernel_size, row0, img_row0, img_rows):
+    return decode_cuda.offset2joint_softmax_rows_cuda(
+        offset.contiguous(), img.contiguous(), kernel_size, row0, img_row0,
+        img_rows)
+
+
+@decode_rows.register_fake
+def _decode_rows_fake(offset, img, kernel_size, row0, img_row0, img_rows):
+    return _decode_fake(offset, img, kernel_size)
 
 
 # ---------------------------------------------------------------- encode

@@ -18,11 +18,20 @@ Data mode (the JAX package's ``Predictor(mesh=make_mesh(...))``): with a
 Predictor holds one replica of the model on each, pads a batch to a
 bucket that divides by the mesh size, and runs each replica on its
 contiguous block of it, on its own device and stream.
+
+Spatial mode (``Predictor(mesh=spatial_mesh(...))``, the mode chosen by
+the mesh's axis name as in the JAX package): a replica on each device
+too, but each request's normalized frames are split by image rows into
+one band a device, the backbone runs band by band with halo rows
+exchanged between neighbours, each band's map rows are decoded by the
+row-window decode, and the bands' softmax statistics are merged on the
+first device (:mod:`awr_tpu_torch.parallel.spatial`).  A latency mode:
+even a batch-1 request spreads over the mesh.  The image rows must
+divide by the mesh size.
 """
 
 from __future__ import annotations
 
-import contextlib
 import copy
 from typing import Optional
 
@@ -39,7 +48,8 @@ from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import set_compute_dtype
 from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
-from awr_tpu_torch.parallel.mesh import data_sharding
+from awr_tpu_torch.parallel.mesh import SPATIAL_AXIS, data_sharding
+from awr_tpu_torch.parallel.spatial import make_spatial_infer_step, on_device
 from awr_tpu_torch.training import qat
 from awr_tpu_torch.training.steps import infer, make_infer_step
 
@@ -106,12 +116,6 @@ def _to_host(out: torch.Tensor):
     return host, copied
 
 
-def _on(device: torch.device):
-    """``device`` as the current CUDA device (a no-op context off CUDA)."""
-    return (torch.cuda.device(device) if device.type == "cuda"
-            else contextlib.nullcontext())
-
-
 class Predictor:
     def __init__(self, config: Config, model_or_state, paras=None,
                  flip: Optional[int] = None, device=None, mesh=None):
@@ -121,12 +125,15 @@ class Predictor:
         without a GPU, name "cpu".
 
         ``mesh``: a :class:`~awr_tpu_torch.parallel.mesh.Mesh` of more than
-        one device serves in data mode (the module docstring); the model
-        then lives on ``mesh.devices[0]`` (``device`` must be that one or
-        None) and a replica on each other mesh device.  A mesh of one
-        device is no mesh, as in the JAX package."""
+        one device serves in data mode, or in spatial mode on a
+        ``spatial_mesh`` (the module docstring); the model then lives on
+        ``mesh.devices[0]`` (``device`` must be that one or None) and a
+        replica on each other mesh device.  A mesh of one device is no
+        mesh, as in the JAX package."""
         self.cfg = config
         self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._spatial = (self.mesh is not None
+                         and self.mesh.axis_name == SPATIAL_AXIS)
         if self.mesh is not None:
             for d in self.mesh.devices:
                 resolve_device(d)
@@ -147,7 +154,6 @@ class Predictor:
                             compute_dtype=dtype),
                 model_or_state)
         self.model = model.to(self.device).eval()
-        self._infer = make_infer_step(self.model, config)
         self._replicate()
         # calibrated int8 activation scales by layer name, once quantized
         self.quant = None
@@ -158,12 +164,17 @@ class Predictor:
         """``self._replicas``: ``(device, model, infer step)`` of
         ``self.model`` and, under a mesh, of a copy of it (weights,
         BatchNorm statistics, quantization mode and int8 scales) on each
-        other mesh device."""
-        self._replicas = [(self.device, self.model, self._infer)]
+        other mesh device; ``self._infer``: the first replica's step, or
+        in spatial mode the step that runs the replicas band by band."""
+        self._replicas = [(self.device, self.model,
+                           make_infer_step(self.model, self.cfg))]
         for d in (self.mesh.devices[1:] if self.mesh is not None else ()):
             replica = copy.deepcopy(self.model).to(d).eval()
             self._replicas.append((d, replica,
                                    make_infer_step(replica, self.cfg)))
+        self._infer = (make_spatial_infer_step(
+            self.mesh, [m for _, m, _ in self._replicas],
+            self.cfg.kernel_size) if self._spatial else self._replicas[0][2])
 
     @classmethod
     def from_checkpoint(cls, config: Config, ckpt_dir: str,
@@ -269,7 +280,6 @@ class Predictor:
             if fell_back:
                 model = ptq
         self.model = model.eval()
-        self._infer = make_infer_step(self.model, self.cfg)
         self.quant = quant
         self._switch_int8()
         if validation is not None:
@@ -303,10 +313,11 @@ class Predictor:
         :mod:`awr_tpu_torch.ops.library`, so loading it needs them
         registered (``awr_tpu_torch.export.load`` imports them), and it
         runs on the kind of device it was traced on: the deviations from a
-        StableHLO payload (:mod:`awr_tpu_torch.export`).  Under a mesh the
-        program is traced on the first replica's device and holds one
-        device's graph (a ``torch.export`` program runs on one device),
-        where the JAX package exports the mesh's sharded program."""
+        StableHLO payload (:mod:`awr_tpu_torch.export`).  Under a mesh, data
+        or spatial, the program is traced on the first replica's device
+        and holds one device's graph (a ``torch.export`` program runs on
+        one device; no band is split), where the JAX package exports the
+        mesh's sharded program."""
         B, size, dev = int(batch_size), self.cfg.img_size, self.device
         if raw_hw is None:
             program = _NormalizedProgram(self.model, self.cfg.kernel_size)
@@ -332,12 +343,13 @@ class Predictor:
     def _bucket(self, n: int) -> int:
         """Pad batch size up to a power-of-two bucket (min 8), so the
         device sees a few batch shapes, whatever the clients send.  Under
-        a mesh the bucket is also at least the mesh size and rounded up
-        to a multiple of it, so that it splits evenly (the JAX rule)."""
+        a data mesh the bucket is also at least the mesh size and rounded
+        up to a multiple of it, so that it splits evenly (the JAX rule); a
+        spatial mesh splits rows, not the batch, and rounds nothing."""
         b = 8
         while b < n:
             b *= 2
-        if self.mesh is not None:
+        if self.mesh is not None and not self._spatial:
             size = self.mesh.size
             b = max(b, size)
             b = -(-b // size) * size
@@ -352,7 +364,7 @@ class Predictor:
         copies = []
         for (dev, _, infer), rows in zip(
                 self._replicas, data_sharding(self.mesh).slices(bucket)):
-            with _on(dev):
+            with on_device(dev):
                 copies.append(_to_host(run(dev, infer, rows)))
 
         def wait() -> np.ndarray:
@@ -379,7 +391,7 @@ class Predictor:
             raise ValueError("empty batch: predict_normalized needs at "
                              "least one frame")
         bucket = self._bucket(n)
-        if self.mesh is not None:
+        if self.mesh is not None and not self._spatial:
             img = self._pad(img_norm, bucket)
             return self._on_mesh(bucket, lambda dev, infer, rows: infer(
                 upload(img[rows], dev)))()[:n]
@@ -412,9 +424,11 @@ class Predictor:
         on the stream.  ``finalize`` waits on that event alone, so a second
         call's work, enqueued after it, never delays the first's result
         (the overlap :mod:`awr_tpu_torch.batching` pipelines on).  Under a
-        mesh each replica crops and infers its block of the padded batch
-        on its device, each device records its own event, and
-        ``finalize`` waits on all of them."""
+        data mesh each replica crops and infers its block of the padded
+        batch on its device, each device records its own event, and
+        ``finalize`` waits on all of them.  Under a spatial mesh the first
+        device crops, the bands run on their devices, and the joints,
+        merged on the first device, come back as on one device."""
         # contiguous: ``torch.from_numpy`` refuses a view with negative
         # strides, which the pad no longer copies away on a GPU
         imgs = np.ascontiguousarray(imgs, np.float32)
@@ -427,7 +441,7 @@ class Predictor:
         cubes = np.asarray(cubes)
         centers_uvd = xyz2uvd_np(centers_xyz, self.paras, self.flip)
         bucket = self._bucket(B)
-        if self.mesh is not None:
+        if self.mesh is not None and not self._spatial:
             return self._predict_async_mesh(imgs, centers_xyz, centers_uvd,
                                             cubes, bucket)
         img_n, M_p = crop_normalize_batch(

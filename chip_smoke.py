@@ -115,6 +115,19 @@ float32, TF32 off (then bf16, phase ``bf16``):
   one-device Predictors, the mesh buckets, one decode (and 20 GEMMs and
   3 deconvs) per replica a request, request times beside the one-device
   Predictor's (both replicas share one card: no scaling is claimed).
+- spatial: Predictors on ``spatial_mesh(devices=["cuda:0"] * n)`` for n =
+  2 and 8 (each request's image rows in n bands, run band by band with
+  halo rows exchanged, the row-window decode on each band, the bands'
+  softmax merged): hourglass_1 float32 raw ``predict`` at B = 1 and 32
+  against the one-device Predictor (normalized joints within
+  SPATIAL_ATOL), hourglass_1 bf16 at B = 1 (the 2x rule of
+  tests/test_torch_bf16.py against the one-device bf16 Predictor),
+  resnet_18 float32 and int8 (scales bit-equal, joints within
+  INT8_CPU_ATOL), exact launches (one row-window decode a band, each
+  int8 GEMM and deconv once a band), request times beside the
+  one-device Predictor's, a ``BatchingPredictor`` over the spatial
+  Predictor, and the row-window decode's device time (one card: no
+  scaling is claimed).
 
 Each path runs with every launch counter set to 0 just before it and is
 checked to have gone through its kernels.  Each phase prints one JSON
@@ -163,8 +176,10 @@ from awr_tpu_torch.models.quant import (QuantConv, quant_layers, set_int8,
                                         set_quant_mode)
 from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
 from awr_tpu_torch.ops.decode import decode_offsets
-from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
+from awr_tpu_torch.ops.functional import (joint2offset, merge_softmax_bands,
+                                          offset2joint_softmax,
                                           offset2joint_softmax_backward,
+                                          offset2joint_softmax_rows,
                                           offset2joint_softmax_stats)
 from awr_tpu_torch.server import AWRServer
 from awr_tpu_torch.serving import Predictor
@@ -207,6 +222,11 @@ KERNELS = [
          counter="DECONV_BF16_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
          replaces="awr_tpu/ops/pallas_int8.py:89",
          path="bf16_serve_resnet_18_int8"),
+    # the decode's kernel on a window of map rows: one launch for each
+    # band of a spatial request
+    dict(name="decode_rows", route="cuda", module=decode_cuda,
+         counter="ROWS_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
+         replaces="awr_tpu/ops/pallas_decode.py:69", path="spatial"),
 ]
 SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
 # host C++ built beside the kernels: the PNG unfilter of the datasets
@@ -369,6 +389,16 @@ PARALLEL_BATCHES = (1, 12, 32, 256)
 PARALLEL_TIMED_BATCHES = (1, 32, 256)
 PARALLEL_REPS = 10
 PARALLEL_TIMEOUT_S = 600
+# The spatial phase: meshes of n bands on the card, request batches;
+# float32 joints against the one-device Predictor's, normalized: cuDNN
+# may choose other algorithms for a band's slab than for the whole
+# tensor (the data mode's bar, EXPORT_ATOL["normalized"]); bf16: the max
+# of tests/test_torch_bf16.py's 2x rule (JOINT_ATOL)
+SPATIAL_MESHES = (2, 8)
+SPATIAL_BATCHES = (1, 32)
+SPATIAL_ATOL = 1e-5
+SPATIAL_BF16_ATOL = 0.15
+SPATIAL_REPS = {1: 20, 32: 10}
 # float operations for each (sample, joint, pixel): decode (mask, logit,
 # max, exp, sum, distance, weight, three offset and three coordinate
 # products and sums); encode (three differences, squares and sums, sqrt,
@@ -526,6 +556,7 @@ def phase_kernels():
     if not all(v["max_equal"] and v["sum_max_rel_err"] <= STATS_SUM_RTOL
                for v in stat.values()):
         raise AssertionError(f"decode statistics disagree: {stat}")
+    errs["decode_rows"] = check_decode_rows(off, img)
 
     jt, img = encode_inputs(32)
     got = encode_cuda.joint2offset_cuda(jt, img, KERNEL_SIZE, 64)
@@ -599,6 +630,80 @@ def phase_kernels():
                                      f"{(B, H, W, c_in, c_out)}")
         errs[name] = err
     return errs
+
+
+def decode_windows(F, H, n):
+    """(row0, rows, img_row0, img_h) of each non-empty band of an F-row
+    map over ``n`` bands, with the rows of the H-row depth that its
+    nearest resize reads (``parallel.spatial.infer``'s windows)."""
+    bounds = [b * F // n for b in range(n + 1)]
+    out = []
+    for r0, r1 in zip(bounds, bounds[1:]):
+        if r1 > r0:
+            i0, i1 = (r0 * H) // F, ((r1 - 1) * H) // F + 1
+            out.append((r0, r1 - r0, i0, i1 - i0))
+    return out
+
+
+def check_decode_rows(off, img):
+    """The row-window decode of every band of 2, 3 and 8 bands of the
+    B = 32 map (the spatial path's windows: the first and the last band
+    included), and of a 4-row map at B = 8 over 8 bands (four of them
+    empty, skipped), each given only the depth rows it reads: against the
+    plain window decode (joints within DECODE_ATOL of it in float64: in
+    float32 its softmax's 1/P rounds where a window's P pixels are no
+    power of two; the statistics against it in float32, the max
+    bit-equal, the sum within STATS_SUM_RTOL), and the bands merged
+    against the full-map kernel.  Returns float32's largest joint
+    error."""
+    small = decode_inputs(8, F=4, H=8)
+    res, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[1]
+        for label, (o, d), meshes in (("b32_f64", (off, img), (2, 3, 8)),
+                                      ("b8_f4", small, (8,))):
+            o = o.to(dtype)
+            F, H = o.shape[2], d.shape[1]
+            full = decode_cuda.offset2joint_softmax_cuda(o, d, KERNEL_SIZE)
+            for n in meshes:
+                parts, err, stats_ok = [], 0.0, True
+                for r0, rows, i0, h in decode_windows(F, H, n):
+                    ow = o[:, :, r0:r0 + rows].contiguous()
+                    dw = d[:, i0:i0 + h].contiguous()
+                    got = decode_cuda.offset2joint_softmax_rows_cuda(
+                        ow, dw, KERNEL_SIZE, r0, i0, H)
+                    torch.cuda.synchronize()
+                    want = offset2joint_softmax_rows(ow.float(), dw,
+                                                     KERNEL_SIZE, r0, i0, H)
+                    exact = offset2joint_softmax_rows(
+                        ow.double(), dw.double(), KERNEL_SIZE, r0, i0, H)[0]
+                    err = max(err, float((got[0].double() - exact)
+                                         .abs().max()))
+                    stats_ok &= bool(torch.equal(got[1][..., 0],
+                                                 want[1][..., 0]))
+                    stats_ok &= bool(((got[1][..., 1] - want[1][..., 1]).abs()
+                                      / want[1][..., 1]).max()
+                                     <= STATS_SUM_RTOL)
+                    parts.append(got)
+                merged = merge_softmax_bands(parts)[0]
+                rec = {"bands": len(parts), "max_abs_err": err,
+                       "stats_ok": stats_ok,
+                       "merged_vs_full_kernel": float(
+                           (merged - full[0]).abs().max())}
+                res[f"{name} {label} n={n}"] = rec
+                worst[name] = max(worst.get(name, 0.0), err)
+                if not (finite_all(got[0]) and stats_ok
+                        and err <= DECODE_ATOL
+                        and rec["merged_vs_full_kernel"] <= DECODE_ATOL):
+                    raise AssertionError(f"decode_rows disagrees: {name} "
+                                         f"{label} n={n}: {rec}")
+    emit({"phase": "kernels", "kernel": "decode_rows", "windows": res,
+          "atol": DECODE_ATOL, "stats_sum_rtol": STATS_SUM_RTOL})
+    return worst["float32"]
+
+
+def finite_all(t) -> bool:
+    return bool(torch.isfinite(t).all())
 
 
 # (M, K, N) of resnet_18's int8 GEMMs at B = 32, img 128: a deconv
@@ -3186,6 +3291,171 @@ def phase_parallel(pred, pred_r, crops_q, frames, joints, centers):
     return launches
 
 
+def rms(a, b) -> float:
+    return float(np.sqrt(np.mean((np.asarray(a, np.float64) - b) ** 2)))
+
+
+def spatial_request(launches, name, fn, want):
+    """``fn()`` with the counts set to 0 just before and read just after,
+    checked against ``want`` and added to ``launches``."""
+    reset_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    got = counts()
+    check_launches(name, got, want)
+    for k, n in got.items():
+        launches[k] += n
+    return out
+
+
+def spatial_hourglass(pred, mesh, frames, centers, launches, bf16_one):
+    """hourglass_1 on the spatial ``mesh``: float32 raw requests at
+    SPATIAL_BATCHES against the one-device ``pred`` (normalized joints on
+    the same crops, the raw joints' largest difference), request times,
+    and a bf16 request at B = 1 under the 2x rule."""
+    cfg, n = pred.cfg, mesh.size
+    sd = pred.model.state_dict()
+    sp = Predictor(cfg, sd, mesh=mesh)
+    res = {}
+    for B in SPATIAL_BATCHES:
+        f = np.resize(frames, (B,) + frames.shape[1:])
+        c = np.resize(centers, (B, 3))
+        raw = spatial_request(launches, f"spatial float32 n={n} B={B}",
+                              lambda: sp.predict(f, c), {"decode_rows": n})
+        img = normalized_crops(cfg, f, c)
+        got = spatial_request(launches, f"spatial float32 n={n} B={B}",
+                              lambda: sp.predict_normalized(img),
+                              {"decode_rows": n})
+        want = pred.predict_normalized(img)
+        rec = {"bucket": sp._bucket(B),
+               "normalized_max_abs_err": float(np.abs(got - want).max()),
+               "raw_max_abs_err_px_mm": float(
+                   np.abs(raw - pred.predict(f, c)).max()),
+               "halo_rows": sum(map(sum, sp._infer.runner.gathered.values())),
+               "request_ms": predict_ms(sp, f, c, SPATIAL_REPS[B])["median"],
+               "one_device_request_ms": predict_ms(
+                   pred, f, c, SPATIAL_REPS[B])["median"]}
+        res[f"b{B}"] = rec
+        if (rec["bucket"] != pred._bucket(B) or raw.shape != (B, 14, 3)
+                or not np.isfinite(raw).all() or rec["halo_rows"] <= 0
+                or not rec["normalized_max_abs_err"] <= SPATIAL_ATOL):
+            raise AssertionError(f"spatial float32 n={n} B={B}: {rec}")
+    spb = Predictor(cfg.replace(compute_dtype="bfloat16"), sd, mesh=mesh)
+    img = normalized_crops(cfg, frames[:1], centers[:1])
+    got = spatial_request(launches, f"spatial bf16 n={n}",
+                          lambda: spb.predict_normalized(img),
+                          {"decode_rows": n})
+    ref_b, ref_f = (p.predict_normalized(img) for p in (bf16_one, pred))
+    rec = {"rms_vs_one_device_bf16": rms(got, ref_b),
+           "rms_one_device_bf16_vs_float32": rms(ref_b, ref_f),
+           "max_abs_err": float(np.abs(got - ref_b).max()),
+           "atol": SPATIAL_BF16_ATOL}
+    res["bf16_b1"] = rec
+    if not (rec["rms_vs_one_device_bf16"]
+            <= 2 * rec["rms_one_device_bf16_vs_float32"]
+            and rec["max_abs_err"] <= SPATIAL_BF16_ATOL):
+        raise AssertionError(f"spatial bf16 n={n}: {rec}")
+    return sp, res
+
+
+def spatial_resnet(pred_r, pred_q, crops_q, mesh, launches):
+    """resnet_18 on the spatial ``mesh``: float32 and, after ``quantize``
+    on the same crops as the one-device ``pred_q``, int8 (scales
+    bit-equal), both against the one-device Predictors."""
+    n = mesh.size
+    sp = Predictor(pred_r.cfg, pred_r.model.state_dict(), mesh=mesh)
+    got = spatial_request(launches, f"spatial resnet_18 float32 n={n}",
+                          lambda: sp.predict_normalized(crops_q),
+                          {"decode_rows": n})
+    res = {"float32_max_abs_err": float(
+        np.abs(got - pred_r.predict_normalized(crops_q)).max())}
+    sp.quantize(crops_q)
+    res["scales_equal"] = all(torch.equal(sp.quant[k], pred_q.quant[k])
+                              for k in pred_q.quant)
+    # at img 128 every layer of resnet_18 has at least 8 rows: each int8
+    # layer runs on every band
+    got = spatial_request(launches, f"spatial resnet_18 int8 n={n}",
+                          lambda: sp.predict_normalized(crops_q),
+                          {"decode_rows": n, "int8_gemm": 20 * n,
+                           "deconv_int8": 3 * n})
+    res["int8_max_abs_err"] = float(
+        np.abs(got - pred_q.predict_normalized(crops_q)).max())
+    if not (res["scales_equal"]
+            and res["float32_max_abs_err"] <= SPATIAL_ATOL
+            and res["int8_max_abs_err"] <= INT8_CPU_ATOL):
+        raise AssertionError(f"spatial resnet_18 n={n}: {res}")
+    return res
+
+
+def spatial_batching(sp, frames, centers, launches):
+    """A ``BatchingPredictor`` over the spatial Predictor ``sp``: its
+    joints against ``sp.predict``'s; each dispatch launches one
+    row-window decode a band."""
+    from awr_tpu_torch.batching import BatchingPredictor
+
+    want = sp.predict(frames[:8], centers[:8])
+    reset_counts()
+    with BatchingPredictor(sp, max_batch=8, max_wait_ms=20.0) as bp:
+        futs = [bp.submit(frames[i], centers[i]) for i in range(8)]
+        got = np.stack([f.result(timeout=120) for f in futs])
+    torch.cuda.synchronize()
+    n = counts()
+    for k, v in n.items():
+        launches[k] += v
+    rec = {"max_abs_err_px_mm": float(np.abs(got - want).max()),
+           "decode_rows_launches": n["decode_rows"]}
+    others = {k: v for k, v in n.items() if k != "decode_rows" and v}
+    if (others or n["decode_rows"] == 0 or n["decode_rows"] % sp.mesh.size
+            or not np.allclose(got, want, rtol=1e-5, atol=1e-3)):
+        raise AssertionError(f"spatial batching: {rec}, {others}")
+    return rec
+
+
+def decode_rows_times(bw, flops, rows):
+    """The row-window decode at B = 32 on the last ``rows`` rows of the
+    F = 64 map (a spatial band of 64 / rows bands) and the depth rows it
+    reads, beside its plain version and its bound."""
+    B, F, J, H = 32, 64, 14, 128
+    r0, i0 = F - rows, (F - rows) * H // F
+    off, img = decode_inputs(B)
+    off, img = off[:, :, r0:].contiguous(), img[:, i0:].contiguous()
+
+    def args():
+        return off.clone(), img.clone(), KERNEL_SIZE, r0, i0, H
+    # the window's map and resized depth read, the joints and (max, sum)
+    # written
+    return kernel_times(
+        decode_cuda.offset2joint_softmax_rows_cuda, offset2joint_softmax_rows,
+        args, B * 4 * J * rows * F * 4 + B * rows * F * 4 + B * J * 5 * 4,
+        B * J * rows * F * OPS["decode"], bw, flops)
+
+
+def phase_spatial(pred, pred_r, pred_q, crops_q, frames, centers, bw, flops,
+                  smi):
+    """Spatial serving on ``spatial_mesh(devices=["cuda:0"] * n)``, n in
+    SPATIAL_MESHES (see the module docstring).  Returns the launches of
+    the spatial requests and the row-window decode's times."""
+    from awr_tpu_torch.parallel import spatial_mesh
+
+    launches = {k["name"]: 0 for k in KERNELS}
+    out = {"phase": "spatial", "nvidia_smi": smi, "hourglass_1": {},
+           "resnet_18": {}}
+    bf16_one = Predictor(pred.cfg.replace(compute_dtype="bfloat16"),
+                         pred.model.state_dict(), device="cuda")
+    for n in SPATIAL_MESHES:
+        mesh = spatial_mesh(devices=["cuda:0"] * n)
+        sp, out["hourglass_1"][f"n{n}"] = spatial_hourglass(
+            pred, mesh, frames, centers, launches, bf16_one)
+        out["resnet_18"][f"n{n}"] = spatial_resnet(pred_r, pred_q, crops_q,
+                                                   mesh, launches)
+    out["batching"] = spatial_batching(sp, frames, centers, launches)
+    times = {rows: decode_rows_times(bw, flops, rows) for rows in (32, 8)}
+    out["decode_rows_b32"] = {f"rows{r}": t for r, t in times.items()}
+    out["launches"] = launches
+    emit(out)
+    return launches, dict(times[32], library_ms=None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3238,6 +3508,8 @@ def main() -> int:
     launches["export"] = phase_export(pred, pred_q, frames, centers)
     launches["parallel"] = phase_parallel(pred, pred_r, crops, frames,
                                           joints, centers)
+    launches["spatial"], times["decode_rows"] = phase_spatial(
+        pred, pred_r, pred_q, crops, frames, centers, bw, flops, smi)
 
     emit({"kernels": [
         {"name": k["name"], "route": k["route"], "source": k["source"],

@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernels (decode and its softmax statistics,
-decode backward, encode, int8 GEMM, int8 deconv) against their plain
-PyTorch versions, on the card, int8 requests of both backbones through
-them, the QAT fine-tune's launches, fallback and TF32 rule, and the
+"""The hand-written CUDA kernels (decode and its softmax statistics, of
+the whole map and of a row window, decode backward, encode, int8 GEMM,
+int8 deconv) against their plain PyTorch versions, on the card, int8
+requests of both backbones through them, spatial requests, the QAT
+fine-tune's launches, fallback and TF32 rule, and the
 ``Predictor.predict_async`` contract the batching layer pipelines on.  Needs no
 JAX; skips without a GPU.  On a machine with one:
 
@@ -720,5 +721,107 @@ def test_data_mode_predictor_on_two_replicas(cuda, net):
     assert [y - x for x, y in zip(before, counters())] == [
         2 * n for n in per_replica]
     assert two._bucket(12) == 16
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-5 if net == "hourglass_1" else 1e-3)
+
+
+def band_windows(F, H, n):
+    """(row0, rows, img_row0, img_h) of each non-empty band of an F-row map
+    over ``n`` bands, with the depth rows of H its nearest resize reads."""
+    bounds = [b * F // n for b in range(n + 1)]
+    out = []
+    for r0, r1 in zip(bounds, bounds[1:]):
+        if r1 > r0:
+            i0, i1 = (r0 * H) // F, ((r1 - 1) * H) // F + 1
+            out.append((r0, r1 - r0, i0, i1 - i0))
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,H", SHAPES)
+def test_decode_rows_kernel_matches_plain(cuda, B, F, H, dtype):
+    """The row-window decode (spatial serving) on every band of 2, 3 and
+    8 bands, the first and the last included, each given only the depth
+    rows it reads: joints against the plain window decode in float64
+    (in float32 the plain softmax's 1/P rounds where a window's P pixels
+    are no power of two, and its weighted sum drifts by up to 6e-5 over
+    5,376 pixels; the kernel sums exp(l - m) d and divides once), the
+    statistics against the float32 plain version (the max bit-equal, the
+    sum to 1e-6); one launch a window."""
+    from awr_tpu_torch.ops.functional import offset2joint_softmax_rows
+
+    off, img, _ = inputs(cuda, B, F, dtype, H)
+    H = img.shape[1]
+    for n in (2, 3, 8):
+        for r0, rows, i0, h in band_windows(F, H, n):
+            o = off[:, :, r0:r0 + rows].contiguous()
+            d = img[:, i0:i0 + h].contiguous()
+            before = decode_cuda.ROWS_LAUNCHES
+            got, stats = decode_cuda.offset2joint_softmax_rows_cuda(
+                o, d, 0.4, r0, i0, H)
+            torch.cuda.synchronize()
+            assert decode_cuda.ROWS_LAUNCHES == before + 1
+            want = offset2joint_softmax_rows(o.double(), d.double(), 0.4,
+                                             r0, i0, H)[0]
+            torch.testing.assert_close(got.double(), want, rtol=0,
+                                       atol=2e-5)
+            assert_stats_match(stats, offset2joint_softmax_rows(
+                o.float(), d, 0.4, r0, i0, H)[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,F,H", SHAPES)
+def test_decode_rows_of_the_whole_map_is_the_decode(cuda, B, F, H, dtype):
+    """Rows [0, F) with the whole depth through the row-window wrapper:
+    the full-map decode's joints and statistics bit for bit (one kernel,
+    the full map being the window row0 = 0, rows = F)."""
+    off, img, _ = inputs(cuda, B, F, dtype, H)
+    full = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
+    rows = decode_cuda.offset2joint_softmax_rows_cuda(off, img, 0.4, 0, 0,
+                                                      img.shape[1])
+    assert torch.equal(full[0], rows[0]) and torch.equal(full[1], rows[1])
+
+
+def test_decode_rows_refuses_missing_depth_rows(cuda):
+    off, img, _ = inputs(cuda, 2, 16)
+    with pytest.raises(ValueError, match="decode window"):
+        decode_cuda.offset2joint_softmax_rows_cuda(
+            off[:, :, 8:].contiguous(), img[:, 20:28].contiguous(), 0.4, 8,
+            20, 32)
+
+
+@pytest.mark.parametrize("net", ["hourglass_1", "resnet_18_int8"])
+def test_spatial_predictor_on_the_card(cuda, net):
+    """A Predictor on ``spatial_mesh(devices=["cuda:0"] * 4)``: 64 rows in
+    four bands; the joints are the one-device Predictor's within 1e-5
+    (int8: 1e-3, scales bit-equal), and a request launches one row-window
+    decode a band, no full-map decode, and (int8) each of the 20 int8
+    GEMMs and 3 deconvs once a band."""
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.parallel import spatial_mesh
+
+    cfg = (hourglass_config(img_size=64) if net == "hourglass_1" else
+           resnet_config(img_size=64))
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num),
+                                torch.Generator().manual_seed(0))
+    one = Predictor(cfg, model, device=cuda)
+    four = Predictor(cfg, model, mesh=spatial_mesh(devices=["cuda:0"] * 4))
+    img = np.random.RandomState(5).uniform(-1, 1, (3, 64, 64)).astype(
+        np.float32)
+    if net != "hourglass_1":
+        one.quantize(img)
+        four.quantize(img)
+        for k in one.quant:
+            assert torch.equal(one.quant[k], four.quant[k]), k
+    counters = lambda: (decode_cuda.LAUNCHES,  # noqa: E731
+                        decode_cuda.ROWS_LAUNCHES, int8_cuda.GEMM_LAUNCHES,
+                        int8_cuda.DECONV_LAUNCHES)
+    want = one.predict_normalized(img)
+    before = counters()
+    got = four.predict_normalized(img)
+    per_band = [0, 1, 0, 0] if net == "hourglass_1" else [0, 1, 20, 3]
+    assert [y - x for x, y in zip(before, counters())] == [
+        4 * n for n in per_band]
+    assert four._bucket(3) == 8
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 if net == "hourglass_1" else 1e-3)
