@@ -262,7 +262,7 @@ class _ServiceModel:
 
 class _Request:
     __slots__ = ("imgs", "centers", "cubes", "future", "batched",
-                 "prime", "t_arrival")
+                 "prime", "t_arrival", "waited")
 
     def __init__(self, imgs, centers, cubes, future, batched=False,
                  prime=False):
@@ -278,6 +278,9 @@ class _Request:
         # that would correct it)
         self.prime = prime
         self.t_arrival = _now()
+        # whether its queue wait is recorded (a request deferred at
+        # dispatch is drained again)
+        self.waited = False
 
     @property
     def frames(self) -> int:
@@ -307,6 +310,8 @@ class BatchingPredictor:
     shedding (:class:`DeadlineExceeded`); ``max_queue`` bounds queued
     frames (:class:`QueueFull` at submit).  Both default off.
     """
+
+    QUEUE_WAIT_WINDOW = 1024  # requests in the queue-wait window
 
     def __init__(self, predictor, max_batch: int = 64,
                  max_wait_ms: float = 2.0, pipeline_depth: int = 2,
@@ -352,6 +357,11 @@ class BatchingPredictor:
         self.n_frames = 0
         self.n_shed = 0
         self.n_rejected = 0
+        # the last QUEUE_WAIT_WINDOW requests' seconds from arrival to
+        # the moment a drain took them (``queue_wait_ms``)
+        self._queue_waits: "collections.deque[float]" = collections.deque(
+            maxlen=self.QUEUE_WAIT_WINDOW)
+        self._waits_lock = threading.Lock()
         # latency-bounded dispatch state: measured per-bucket service
         # times and the predicted seconds of dispatched-but-unfinalized
         # work (what a new group must wait behind)
@@ -711,6 +721,7 @@ class BatchingPredictor:
         first = self._next_request()
         if first is None:
             return [], True
+        self._took(first)
         group = [first]
         frames = first.frames
         cap = self._cap_frames(first)
@@ -755,10 +766,31 @@ class BatchingPredictor:
                 self._held.appendleft(nxt)
                 break
             group.append(nxt)
+            self._took(nxt)
             frames += nxt.frames
             # after the grace window only sweep what is already queued
             deadline_wait = 0.0
         return group, stop
+
+    def _took(self, req: _Request) -> None:
+        """Record ``req``'s queue wait, the first time a drain takes it
+        into a group."""
+        if not req.waited:
+            req.waited = True
+            with self._waits_lock:
+                self._queue_waits.append(_now() - req.t_arrival)
+
+    def queue_wait_ms(self) -> dict:
+        """``{"p50", "p95", "n"}``: the queue wait (ms, from arrival to
+        the moment a drain took the request into a group) over the last
+        ``QUEUE_WAIT_WINDOW`` requests; the quantiles are None before
+        the first (the server's ``/healthz`` reports it)."""
+        with self._waits_lock:
+            waits = np.asarray(self._queue_waits, np.float64) * 1e3
+        if not len(waits):
+            return {"p50": None, "p95": None, "n": 0}
+        p50, p95 = np.quantile(waits, [0.5, 0.95])
+        return {"p50": float(p50), "p95": float(p95), "n": len(waits)}
 
     def _run(self):
         while True:

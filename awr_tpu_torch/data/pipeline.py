@@ -16,6 +16,8 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from awr_tpu_torch.utils.profiling import span
+
 
 class PrefetchLoader:
     """Iterable over stacked dict batches with background workers."""
@@ -126,6 +128,9 @@ def prefetch_to_device(iterator, stage, depth: int = 2):
     stager thread preserves order; exceptions (from the iterator or from
     staging) re-raise at the consuming call site.  Abandoning the
     generator unblocks and stops the thread.
+
+    Under a profiler the consumer's wait for a staged item is the span
+    ``pipeline.wait``.
     """
     if depth <= 0:
         for item in iterator:
@@ -162,7 +167,8 @@ def prefetch_to_device(iterator, stage, depth: int = 2):
     t.start()
     try:
         while True:
-            staged, err = out_q.get()
+            with span("pipeline.wait"):
+                staged, err = out_q.get()
             if err is not None:
                 raise err
             if staged is _END:

@@ -32,6 +32,7 @@ API (all JSON):
 ``GET /healthz``
     -> {"ok": true, "net": ..., "jt_num": ..., "int8": ...,
         "batch_dispatches": N, "frames": N, "shed": N, "rejected": N,
+        "padded_share": x, "queue_wait_ms": {"p50", "p95", "n"},
         "service_model_ms": {...}}
 
 Operational limits: the server binds 127.0.0.1 by default (pass
@@ -143,6 +144,10 @@ class AWRServer:
                     "frames": server.batcher.n_frames,
                     "shed": server.batcher.n_shed,
                     "rejected": server.batcher.n_rejected,
+                    # the share of the rows sent to the device that were
+                    # bucket padding, and the requests' queue wait (ms)
+                    "padded_share": padded_share(server.predictor),
+                    "queue_wait_ms": server.batcher.queue_wait_ms(),
                     # measured per-(bucket, frame-shape) service (ms)
                     # driving the deadline machinery; {} until traffic
                     # or priming.  The shed decision runs on p50 (the
@@ -274,6 +279,14 @@ def is_int8(predictor) -> bool:
     """Whether the Predictor serves int8: the port's Predictor holds its
     calibrated scales in ``quant``, None until it is quantized."""
     return getattr(predictor, "quant", None) is not None
+
+
+def padded_share(predictor) -> float:
+    """The share of the rows the Predictor sent to the device that were
+    padding up to a bucket (0 before the first)."""
+    pad = getattr(predictor, "n_padded_rows", 0)
+    total = getattr(predictor, "n_frames", 0) + pad
+    return pad / total if total else 0.0
 
 
 def main(argv=None):

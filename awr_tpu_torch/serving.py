@@ -52,6 +52,7 @@ from awr_tpu_torch.parallel.mesh import SPATIAL_AXIS, data_sharding
 from awr_tpu_torch.parallel.spatial import make_spatial_infer_step, on_device
 from awr_tpu_torch.training import qat
 from awr_tpu_torch.training.steps import infer, make_infer_step
+from awr_tpu_torch.utils.profiling import span
 
 
 def denormalize_uvd(pred: torch.Tensor, M: torch.Tensor,
@@ -159,6 +160,10 @@ class Predictor:
         self.quant = None
         # the holdout scores of the last validated quantize_qat
         self.qat_validation = None
+        # real rows and padding rows sent to the device (the server's
+        # /healthz reads their share)
+        self.n_frames = 0
+        self.n_padded_rows = 0
 
     def _replicate(self) -> None:
         """``self._replicas``: ``(device, model, infer step)`` of
@@ -368,9 +373,10 @@ class Predictor:
                 copies.append(_to_host(run(dev, infer, rows)))
 
         def wait() -> np.ndarray:
-            for _, event in copies:
-                if event is not None:
-                    event.synchronize()
+            with span("serving.wait"):
+                for _, event in copies:
+                    if event is not None:
+                        event.synchronize()
             return np.concatenate([host.numpy() for host, _ in copies])
 
         return wait
@@ -393,11 +399,19 @@ class Predictor:
         bucket = self._bucket(n)
         if self.mesh is not None and not self._spatial:
             img = self._pad(img_norm, bucket)
-            return self._on_mesh(bucket, lambda dev, infer, rows: infer(
+            out = self._on_mesh(bucket, lambda dev, infer, rows: infer(
                 upload(img[rows], dev)))()[:n]
-        img = torch.from_numpy(self._pad(img_norm, bucket))
-        out = self._infer(img.to(self.device))
-        return out[:n].cpu().numpy()
+        else:
+            img = torch.from_numpy(self._pad(img_norm, bucket))
+            out = self._infer(img.to(self.device))[:n].cpu().numpy()
+        self._count(n, bucket)
+        return out
+
+    def _count(self, n: int, bucket: int) -> None:
+        """Count a call's ``n`` real rows and its padding up to
+        ``bucket``."""
+        self.n_frames += n
+        self.n_padded_rows += bucket - n
 
     def predict(self, imgs, centers_xyz, cubes=None) -> np.ndarray:
         """Raw frames -> camera-coordinate joints.
@@ -442,33 +456,31 @@ class Predictor:
         centers_uvd = xyz2uvd_np(centers_xyz, self.paras, self.flip)
         bucket = self._bucket(B)
         if self.mesh is not None and not self._spatial:
-            return self._predict_async_mesh(imgs, centers_xyz, centers_uvd,
-                                            cubes, bucket)
-        img_n, M_p = crop_normalize_batch(
-            self._frames_on_device(imgs, bucket),
-            self._pad(centers_uvd, bucket), self._pad(cubes, bucket),
-            np.asarray(self.paras), self.cfg.img_size)
-        out_dev = self._infer(img_n)[:B]
-        M = M_p[:B]
-        if self.device.type != "cuda":
+            finalize = self._predict_async_mesh(imgs, centers_xyz,
+                                                centers_uvd, cubes, bucket)
+        else:
+            img_n, M_p = crop_normalize_batch(
+                self._frames_on_device(imgs, bucket),
+                self._pad(centers_uvd, bucket), self._pad(cubes, bucket),
+                np.asarray(self.paras), self.cfg.img_size)
+            M = M_p[:B]
+            out_host, copied = _to_host(self._infer(img_n)[:B])
+
             def finalize() -> np.ndarray:
-                return self.denormalize(out_dev.numpy(), centers_xyz, M,
+                with span("serving.wait"):
+                    if copied is not None:
+                        copied.synchronize()
+                return self.denormalize(out_host.numpy(), centers_xyz, M,
                                         cubes)
-            return finalize
-
-        out_host, copied = _to_host(out_dev)
-
-        def finalize() -> np.ndarray:
-            copied.synchronize()
-            return self.denormalize(out_host.numpy(), centers_xyz, M, cubes)
-
+        self._count(B, bucket)
         return finalize
 
     def _predict_async_mesh(self, imgs, centers_xyz, centers_uvd, cubes,
                             bucket):
         """:meth:`predict_async` under a mesh."""
         B = len(imgs)
-        frames = self._pad(imgs, bucket)
+        with span("serving.pad"):
+            frames = self._pad(imgs, bucket)
         centers_p, cubes_p = (self._pad(centers_uvd, bucket),
                               self._pad(cubes, bucket))
         Ms = []
@@ -493,13 +505,14 @@ class Predictor:
         device; on a GPU padded straight into a pinned buffer (by
         PyTorch's copy, which splits a large copy over its threads) and
         copied ``non_blocking``."""
-        if self.device.type != "cuda":
-            return torch.from_numpy(self._pad(imgs, bucket))
-        src = torch.from_numpy(imgs)
-        host = torch.empty((bucket,) + imgs.shape[1:], dtype=torch.float32,
-                           pin_memory=True)
-        host[:len(imgs)].copy_(src)
-        host[len(imgs):].copy_(src[-1:].expand_as(host[len(imgs):]))
+        with span("serving.pad"):
+            if self.device.type != "cuda":
+                return torch.from_numpy(self._pad(imgs, bucket))
+            src = torch.from_numpy(imgs)
+            host = torch.empty((bucket,) + imgs.shape[1:],
+                               dtype=torch.float32, pin_memory=True)
+            host[:len(imgs)].copy_(src)
+            host[len(imgs):].copy_(src[-1:].expand_as(host[len(imgs):]))
         return host.to(self.device, non_blocking=True)
 
     def denormalize(self, pred, centers_xyz, M, cubes) -> np.ndarray:

@@ -78,7 +78,9 @@ def add_common_args(ap: argparse.ArgumentParser):
                     help="'host': the reference's crop and augmentation "
                          "on the host; 'raw': both on the device")
     ap.add_argument("--profile-dir", default="",
-                    help="write a torch.profiler Chrome trace here")
+                    help="write a torch.profiler Chrome trace here: "
+                         "the kernels, the operators and the program's "
+                         "own awr_tpu_torch.* spans")
     ap.add_argument("--allow-centroid-centers", action="store_true",
                     help="msra/hands17: accept joint-centroid crop "
                          "centers when refined center files are absent "

@@ -24,6 +24,12 @@ over the ranks, and the training loss is scaled by the world size,
 which DDP's gradient average divides out again (BatchNorm is global
 with more than one rank: ``models.common.global_batch_norm``).  The
 collectives go on the device's stream; the step still does not wait.
+
+Under a profiler the train steps name their host phases as spans
+(:func:`awr_tpu_torch.utils.profiling.span`): ``train.preprocess`` (the
+raw form's device crop and augmentation), ``train.forward`` (encode,
+forward and losses of a microbatch), ``train.backward`` and
+``train.optimizer`` (``zero_grad`` and ``step``).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from awr_tpu_torch.data.device import train_preprocess
 from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.loss import smooth_l1_loss
+from awr_tpu_torch.utils.profiling import span
 
 
 def _stacked(out: torch.Tensor) -> torch.Tensor:
@@ -122,7 +129,8 @@ def make_train_step(model, optimizer, cfg):
                              f"{accum}")
         mb = B // accum
         model.train()
-        optimizer.zero_grad()
+        with span("train.optimizer"):
+            optimizer.zero_grad()
         if distributed:
             world = dist.get_world_size()
             w, w_sums = _global_weight_sums(w, img, accum)
@@ -139,18 +147,23 @@ def make_train_step(model, optimizer, cfg):
             sync = (model.no_sync() if distributed and i < accum - 1
                     else contextlib.nullcontext())
             with sync:
-                l_off, l_crd, jt_pred = micro(
-                    img[part], jt_uvd[part], None if w is None else w[part],
-                    w_sums[i] if distributed else None)
-                loss = l_off + l_crd
+                with span("train.forward"):
+                    l_off, l_crd, jt_pred = micro(
+                        img[part], jt_uvd[part],
+                        None if w is None else w[part],
+                        w_sums[i] if distributed else None)
+                    loss = l_off + l_crd
                 # one microbatch keeps its loss as it is, as the JAX step
                 # does (an all-padding batch then gives 0, not 0/0)
                 share = 1.0 if accum == 1 else w_sums[i] / w_tot
-                (loss * (share * world if distributed else share)).backward()
+                with span("train.backward"):
+                    (loss * (share * world if distributed
+                             else share)).backward()
             for k, v in enumerate((loss, l_off, l_crd)):
                 totals[k] = totals[k] + v.detach() * share
             jt_preds.append(jt_pred.detach())
-        optimizer.step()
+        with span("train.optimizer"):
+            optimizer.step()
         if distributed:
             totals = _summed(totals)
         loss, l_off, l_crd = totals
@@ -222,7 +235,8 @@ def make_raw_train_step(model, optimizer, cfg, paras, flip: int):
     paras = tuple(float(x) for x in paras)
 
     def raw_train_step(raw, crop_params, aug):
-        pre, batch = _raw_batch(raw, crop_params, aug, paras, cfg, flip)
+        with span("train.preprocess"):
+            pre, batch = _raw_batch(raw, crop_params, aug, paras, cfg, flip)
         metrics = base(batch)
         metrics.update(M=pre["M"], cube=pre["cube"],
                        center_xyz=pre["center_xyz"], jt_xyz=pre["jt_xyz"])

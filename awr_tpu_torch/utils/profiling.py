@@ -1,28 +1,29 @@
-"""Tracing, step timing, FLOPs and the card's peak rates (the JAX
-package's ``utils/profiling.py``).
+"""Tracing, FLOPs and the card's peak rates (the JAX package's
+``utils/profiling.py``).
 
 - :func:`trace` wraps a block in a ``torch.profiler`` trace, written as
   a Chrome trace that Perfetto and ``chrome://tracing`` load;
-- :class:`StepTimer` measures wall time per step, waiting for the
-  step's device work, and keeps a rolling summary;
+- :func:`span` names a phase of the program's host work in whatever
+  profiler is recording (``trace``'s, or a benchmark's), on the clock
+  of the device's kernels, so that the trace says which host work the
+  device waited for;
 - :func:`flops_of` counts the FLOPs of a call with PyTorch's
   ``FlopCounterMode`` (convolutions, transposed convolutions and matrix
   products, from their shapes), where the JAX package asks XLA's cost
   model of the compiled program;
-- :data:`CHIP_PEAKS`, :func:`chip_peak` and :func:`implied_mfu`: the
-  one table of the card's peak rates that every harness reads
-  (``chip_smoke.py`` too), and the utilization a throughput implies.
+- :data:`CHIP_PEAKS` and :func:`chip_peaks`: the one table of the
+  card's peak rates (``chip_smoke.py`` reads it).
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Callable, NamedTuple
 
-import numpy as np
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -40,52 +41,28 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-def _cuda_devices(tree, found: set) -> set:
-    if isinstance(tree, torch.Tensor):
-        if tree.device.type == "cuda":
-            found.add(tree.device)
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            _cuda_devices(v, found)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            _cuda_devices(v, found)
-    return found
+# what :func:`span` returns while no profiler records: one shared,
+# stateless context
+_NO_SPAN = contextlib.nullcontext()
 
 
-class StepTimer:
-    """Rolling step timer; call ``tick(result)`` once per step."""
+def span(name: str):
+    """``with span("serving.pad"): ...`` records the block as the range
+    ``awr_tpu_torch.serving.pad`` while a ``torch.profiler`` records
+    (the dot keeps the program's ranges apart from its custom ops,
+    ``awr_tpu_torch::decode``), and does nothing otherwise.
 
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = []
-        self._last = None
-
-    def start(self):
-        self._last = time.perf_counter()
-
-    def tick(self, result: Any = None) -> float:
-        """Waits for the devices of the tensors in ``result`` (tensors,
-        or dicts, lists and tuples of them) and records the seconds
-        since the last tick (or :meth:`start`)."""
-        for device in _cuda_devices(result, set()):
-            torch.cuda.synchronize(device)
-        now = time.perf_counter()
-        dt = now - (self._last if self._last is not None else now)
-        self._last = now
-        self.times.append(dt)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-        return dt
-
-    def summary(self) -> Dict[str, float]:
-        if not self.times:
-            return {}
-        arr = np.asarray(self.times)
-        return dict(mean_s=float(arr.mean()),
-                    p50_s=float(np.median(arr)),
-                    p95_s=float(np.percentile(arr, 95)),
-                    steps_per_s=float(1.0 / max(arr.mean(), 1e-12)))
+    Off, it reads one flag and returns a shared no-op: it formats no
+    string and builds no object (a range built with no profiler running
+    still costs microseconds).  On, the range is an operator-scope
+    ``RecordFunction`` (``_RecordFunctionFast``), not the user-scope one
+    of ``record_function``: for a user-scope range around device work
+    the profiler also writes a device-side range spanning its kernels,
+    which a reader of the device's intervals would count as busy time
+    (and the idle gaps between those kernels would vanish)."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _RecordFunctionFast("awr_tpu_torch." + name)
 
 
 def flops_of(fn: Callable, *example_args) -> float:
@@ -110,8 +87,7 @@ class ChipPeaks(NamedTuple):
 
 # By substring of the device name, tried in this order.  The dense
 # tensor-core rates are half the with-sparsity figures the data sheets
-# lead with.  Used as ceilings (an implied utilization of 1 or more is
-# refused) and for ``chip_smoke.py``'s bounds, never as targets.
+# lead with.  Used for ``chip_smoke.py``'s bounds, never as targets.
 CHIP_PEAKS = {
     "PCIe": ChipPeaks(2.0e12, 51e12, 756e12, 1513e12),
     "NVL": ChipPeaks(3.9e12, 60e12, 835e12, 1671e12),
@@ -135,21 +111,3 @@ def chip_peaks(device=None) -> ChipPeaks:
         if key in name:
             return peaks
     raise ValueError(f"no peak rates known for {name!r}")
-
-
-def chip_peak(device=None) -> float:
-    """Dense bf16 tensor-core peak FLOP/s of ``device``
-    (:func:`chip_peaks`)."""
-    return chip_peaks(device).bf16_flops
-
-
-def implied_mfu(fps: float, flops_per_frame: float, device=None) -> float:
-    """Model FLOPs utilization that a throughput implies against the
-    card's bf16 peak.  1.0 or more is impossible, and is refused
-    (``ValueError``) rather than reported."""
-    mfu = fps * flops_per_frame / chip_peak(device)
-    if mfu >= 1.0:
-        raise ValueError(f"implied MFU {mfu:.3f} >= 1: {fps} frames/s at "
-                         f"{flops_per_frame:.4g} FLOP a frame is more than "
-                         f"the card's peak")
-    return mfu

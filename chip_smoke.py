@@ -1261,8 +1261,8 @@ INT8_GROUPS = [("int8_gemm", ("s8_gemm",)), ("deconv_int8", ("s8_deconv",)),
 
 def phase_profile(path, fn, args, steps=3, groups=()):
     """Device time of ``fn(*args)`` by kernel (``torch.profiler``),
-    summed over ``steps`` calls, and the device's busy share of them;
-    with ``groups``, also by group of kernel names (the rest under
+    summed over ``steps`` calls, beside their wall time; with
+    ``groups``, also by group of kernel names (the rest under
     "quantize, dequantize and other elementwise")."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1292,7 +1292,6 @@ def phase_profile(path, fn, args, steps=3, groups=()):
     emit({"phase": "profile", "path": path, "steps": steps,
           "wall_ms_per_step": wall_ms / steps,
           "device_ms_per_step": busy_ms / steps,
-          "device_busy_share": busy_ms / wall_ms if busy_ms else None,
           **({"groups_ms_per_step": by_group} if groups else {}),
           "kernels_by_device_ms": [
               {"name": name[:90], "ms_per_step": ms / steps,
