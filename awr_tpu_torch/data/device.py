@@ -5,7 +5,9 @@ The reference crops, z-clips, NEAREST-resizes, center-pads and
 normalizes each frame on the host (loader.py:19-51,88-101).  Here that
 chain is one batched gather per output pixel on the frames' device; only
 the scalar crop parameters are computed on the host, in float64
-(:func:`awr_tpu_torch.data.transforms.crop_params_np`).
+(:func:`awr_tpu_torch.data.transforms.crop_params_np`).  The serving crop
+also reads frames packed down to the windows it can read
+(:mod:`awr_tpu_torch.data.windows`), with the same result.
 
 Semantics:
 - NEAREST resize uses OpenCV's index, ``src = min(floor(dst * (1 /
@@ -46,11 +48,21 @@ def _z_threshold(val, zstart, zend):
     return torch.where(nz & (val > zend), torch.zeros_like(val), val)
 
 
-def _crop_gather(imgs, p, dsize: int):
+def _crop_gather(imgs, p, dsize: int, win=None):
     """Crop raw (B, H0, W0) mm frames to (B, dsize, dsize) mm (before
     normalization).  ``p`` holds the (B,) crop parameters as tensors on
-    the frames' device."""
-    B, H0, W0 = imgs.shape
+    the frames' device.
+
+    ``win``: None, or ``imgs`` is the flat buffer of the frames' packed
+    crop windows (:mod:`awr_tpu_torch.data.windows`) and ``win`` holds
+    their (B,) ``v0 u0 h w base`` as tensors there and the frames' size
+    ``hw``.  Pixel (sv, su) of frame b is then read at ``base + (sv - v0)
+    * w + (su - u0)``, the row and column clamped into the window: the
+    crop is the full frames' bit for bit."""
+    if win is None:
+        B, H0, W0 = imgs.shape
+    else:
+        B, (H0, W0) = p["us"].shape[0], win["hw"]
     dev = imgs.device
     col = lambda k: p[k].view(B, 1, 1)  # noqa: E731
     us, ue, vs, ve = col("us"), col("ue"), col("vs"), col("ve")
@@ -78,8 +90,16 @@ def _crop_gather(imgs, p, dsize: int):
     su = us + cu
     sv = vs + cv
     in_img = (su >= 0) & (su < W0) & (sv >= 0) & (sv < H0)
-    b = torch.arange(B, device=dev).view(B, 1, 1)
-    val = imgs[b, sv.clamp(0, H0 - 1).long(), su.clamp(0, W0 - 1).long()]
+    if win is None:
+        b = torch.arange(B, device=dev).view(B, 1, 1)
+        val = imgs[b, sv.clamp(0, H0 - 1).long(),
+                   su.clamp(0, W0 - 1).long()]
+    else:
+        v0, u0, h, w = (win[k].view(B, 1, 1) for k in ("v0", "u0", "h", "w"))
+        # (B, dsize, 1) rows and (B, 1, dsize) columns of the window
+        r = torch.minimum(sv - v0, h - 1).clamp(min=0)
+        c = torch.minimum(su - u0, w - 1).clamp(min=0)
+        val = imgs[win["base"].view(B, 1, 1) + (r * w).long() + c.long()]
     zero = torch.zeros((), dtype=val.dtype, device=dev)
     val = torch.where(in_img, val, zero)
     val = _z_threshold(val, p["zs"].view(B, 1, 1), p["ze"].view(B, 1, 1))
@@ -107,6 +127,18 @@ def upload(a, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
+def upload_columns(cols: dict, device) -> dict:
+    """Each (B,) host array of ``cols`` on ``device``, in one
+    :func:`upload` for each dtype: the arrays of a dtype stacked, and
+    their rows returned by name."""
+    out = {}
+    for dt in dict.fromkeys(np.dtype(v.dtype) for v in cols.values()):
+        keys = [k for k, v in cols.items() if v.dtype == dt]
+        out.update(zip(keys, upload(np.stack([cols[k] for k in keys]),
+                                    device)))
+    return out
+
+
 def crop_param_tensors(centers_uvd, cubes, paras, dsize: int, device):
     """:func:`crop_params_np` (float64 on the host) as tensors on
     ``device``: the (B,) bounds, clip depths and paste geometry, and the
@@ -132,21 +164,38 @@ def crop_normalize_batch(imgs, centers_uvd, cubes, paras, dsize: int):
     cubes = np.asarray(cubes)
     p_np = crop_params_np(centers_uvd, cubes, np.asarray(paras), dsize)
     M = p_np.pop("M")
-    dev = imgs.device
-    p = {k: upload(v, dev) for k, v in p_np.items()}
-    center_z = upload(centers_uvd[:, 2].astype(np.float32), dev)
-    cube_z = upload(cubes[:, 2].astype(np.float32), dev)
-    return crop_normalize(imgs, p, center_z, cube_z, dsize), M
+    return crop_normalize_params(imgs, p_np, centers_uvd, cubes, dsize), M
 
 
-def crop_normalize(imgs, p, center_z, cube_z, dsize: int):
+def crop_normalize_params(imgs, p_np: dict, centers_uvd, cubes, dsize: int,
+                          windows=None):
+    """:func:`crop_normalize_batch` past the host's crop parameters
+    ``p_np`` (:func:`crop_params_np`'s, without "M"), which go to the
+    device with the depths in one upload a dtype.
+
+    ``windows``: None for (B, H0, W0) frames; or ``imgs`` is the flat
+    buffer that :func:`awr_tpu_torch.data.windows.pack_windows` packed by
+    these :class:`~awr_tpu_torch.data.windows.Windows`."""
+    host = dict(p_np, center_z=np.asarray(centers_uvd)[:, 2].astype(
+        np.float32), cube_z=np.asarray(cubes)[:, 2].astype(np.float32))
+    if windows is not None:
+        host.update(windows.columns())
+    t = upload_columns(host, imgs.device)
+    win = None if windows is None else dict(
+        {k: t[k] for k in windows.columns()}, hw=windows.hw)
+    return crop_normalize(imgs, {k: t[k] for k in p_np}, t["center_z"],
+                          t["cube_z"], dsize, win)
+
+
+def crop_normalize(imgs, p, center_z, cube_z, dsize: int, win=None):
     """Crop raw (B, H0, W0) mm frames with the (B,) crop parameters ``p``
     (:func:`crop_params_np`'s, without "M", as tensors on the frames'
     device) and normalize them about the (B,) float32 ``center_z`` and
     ``cube_z`` -> (B, dsize, dsize) float32 (the JAX package's
-    ``_crop_normalize_kernel``)."""
-    B = imgs.shape[0]
-    crop = _crop_gather(imgs, p, dsize)
+    ``_crop_normalize_kernel``).  ``win``: the packed frames' windows, as
+    :func:`_crop_gather` takes them."""
+    B = center_z.shape[0]
+    crop = _crop_gather(imgs, p, dsize, win)
     depth_max = crop.amax(dim=(1, 2), keepdim=True)
     return normalize(crop, depth_max, center_z.view(B, 1, 1),
                      cube_z.view(B, 1, 1))

@@ -3,8 +3,9 @@
 Each ``awr_tpu_torch/csrc/<name>.cu`` exposes a plain ``extern "C"``
 launcher.  It is compiled by ``nvcc`` for Hopper (``sm_90a``) into
 ``build/awr_tpu_torch/lib<name>-<hash>.so`` at first use and bound with
-``ctypes``.  A ``csrc/<name>.cpp`` is host code (the PNG unfilter): the
-host C++ compiler (``c++`` or ``g++`` on PATH) builds it the same way.
+``ctypes``.  A ``csrc/<name>.cpp`` is host code (the PNG unfilter, the
+Predictor's window packing): the host C++ compiler (``c++`` or ``g++`` on
+PATH) builds it the same way.
 The hash covers the source, for a ``.cu`` every header under ``csrc/``
 (``*.cuh``), and the flags, so an edited source or header is rebuilt.
 A missing compiler or a failed build raises.  Builds are serialized by
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "awr_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 # one build at a time in this process: two threads that both find a
 # library missing would otherwise run two compilers onto one temporary
 # file (it is named by the process), and lru_cache does not serialize the
@@ -46,11 +47,16 @@ def _nvcc() -> str:
     return nvcc
 
 
+def host_compiler():
+    """The host C++ compiler on PATH (``c++``, else ``g++``), or None."""
+    return shutil.which("c++") or shutil.which("g++")
+
+
 def _cxx() -> str:
-    cxx = shutil.which("c++") or shutil.which("g++")
+    cxx = host_compiler()
     if cxx is None:
         raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
-                           "PNG unfilter is built with one")
+                           "host C++ under csrc/ is built with one")
     return cxx
 
 

@@ -32,7 +32,8 @@ API (all JSON):
 ``GET /healthz``
     -> {"ok": true, "net": ..., "jt_num": ..., "int8": ...,
         "batch_dispatches": N, "frames": N, "shed": N, "rejected": N,
-        "padded_share": x, "queue_wait_ms": {"p50", "p95", "n"},
+        "padded_share": x, "uploaded_share": x,
+        "queue_wait_ms": {"p50", "p95", "n"},
         "service_model_ms": {...}}
 
 Operational limits: the server binds 127.0.0.1 by default (pass
@@ -145,8 +146,11 @@ class AWRServer:
                     "shed": server.batcher.n_shed,
                     "rejected": server.batcher.n_rejected,
                     # the share of the rows sent to the device that were
-                    # bucket padding, and the requests' queue wait (ms)
+                    # bucket padding, the share of the raw frames' pixels
+                    # uploaded (their crop windows), and the requests'
+                    # queue wait (ms)
                     "padded_share": padded_share(server.predictor),
+                    "uploaded_share": uploaded_share(server.predictor),
                     "queue_wait_ms": server.batcher.queue_wait_ms(),
                     # measured per-(bucket, frame-shape) service (ms)
                     # driving the deadline machinery; {} until traffic
@@ -287,6 +291,14 @@ def padded_share(predictor) -> float:
     pad = getattr(predictor, "n_padded_rows", 0)
     total = getattr(predictor, "n_frames", 0) + pad
     return pad / total if total else 0.0
+
+
+def uploaded_share(predictor) -> float:
+    """The share of the raw frames' pixels (bucket rows of whole frames)
+    that the Predictor packed and uploaded, its crop windows (0 before the
+    first call)."""
+    raw = getattr(predictor, "n_raw_px", 0)
+    return getattr(predictor, "n_uploaded_px", 0) / raw if raw else 0.0
 
 
 def main(argv=None):

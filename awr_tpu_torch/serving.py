@@ -42,7 +42,9 @@ from torch import nn
 from awr_tpu_torch import export
 from awr_tpu_torch.config import Config, resolve_device
 from awr_tpu_torch.data.device import (crop_normalize, crop_normalize_batch,
-                                       upload)
+                                       crop_normalize_params, upload)
+from awr_tpu_torch.data.transforms import crop_params_np
+from awr_tpu_torch.data.windows import Windows, crop_windows, pack_windows
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import set_compute_dtype
@@ -160,10 +162,13 @@ class Predictor:
         self.quant = None
         # the holdout scores of the last validated quantize_qat
         self.qat_validation = None
-        # real rows and padding rows sent to the device (the server's
-        # /healthz reads their share)
+        # real rows and padding rows sent to the device, and the raw
+        # frames' pixels (bucket rows x H0 x W0) against those uploaded
+        # (the server's /healthz reads their shares)
         self.n_frames = 0
         self.n_padded_rows = 0
+        self.n_raw_px = 0
+        self.n_uploaded_px = 0
 
     def _replicate(self) -> None:
         """``self._replicas``: ``(device, model, infer step)`` of
@@ -407,11 +412,14 @@ class Predictor:
         self._count(n, bucket)
         return out
 
-    def _count(self, n: int, bucket: int) -> None:
-        """Count a call's ``n`` real rows and its padding up to
-        ``bucket``."""
+    def _count(self, n: int, bucket: int, raw_px: int = 0,
+               uploaded_px: int = 0) -> None:
+        """Count a call's ``n`` real rows, its padding up to ``bucket``,
+        and its raw frames' pixels and those it uploaded."""
         self.n_frames += n
         self.n_padded_rows += bucket - n
+        self.n_raw_px += raw_px
+        self.n_uploaded_px += uploaded_px
 
     def predict(self, imgs, centers_xyz, cubes=None) -> np.ndarray:
         """Raw frames -> camera-coordinate joints.
@@ -430,7 +438,9 @@ class Predictor:
         """Enqueue crop, forward and decode on the device without waiting
         for them; returns ``finalize() -> (B, J, 3)``, which waits and
         de-normalizes.  The raw batch is padded to its bucket before the
-        crop.
+        crop.  Of each frame only the window the crop can read is packed
+        and uploaded (:mod:`awr_tpu_torch.data.windows`); the padding rows
+        share the last frame's.
 
         On a GPU nothing here waits for the device: the uploads go through
         pinned memory with ``non_blocking`` copies, and the joints come back
@@ -443,27 +453,37 @@ class Predictor:
         ``finalize`` waits on all of them.  Under a spatial mesh the first
         device crops, the bands run on their devices, and the joints,
         merged on the first device, come back as on one device."""
-        # contiguous: ``torch.from_numpy`` refuses a view with negative
-        # strides, which the pad no longer copies away on a GPU
-        imgs = np.ascontiguousarray(imgs, np.float32)
+        # any strides: the packer reads a view as it lies
+        imgs = np.asarray(imgs)
+        if imgs.dtype != np.float32:
+            imgs = imgs.astype(np.float32)
         centers_xyz = np.asarray(centers_xyz, np.float64)
         B = len(imgs)
         if B == 0:
             raise ValueError("empty batch: predict needs at least one frame")
+        if imgs.ndim != 3:
+            raise ValueError(f"expected (B, H0, W0) frames, got {imgs.shape}")
         if cubes is None:
             cubes = np.tile(np.asarray(self.cfg.cube, np.float64), (B, 1))
         cubes = np.asarray(cubes)
         centers_uvd = xyz2uvd_np(centers_xyz, self.paras, self.flip)
         bucket = self._bucket(B)
+        raw_px = bucket * imgs[0].size
+        centers_p, cubes_p = (self._pad(centers_uvd, bucket),
+                              self._pad(cubes, bucket))
         if self.mesh is not None and not self._spatial:
-            finalize = self._predict_async_mesh(imgs, centers_xyz,
-                                                centers_uvd, cubes, bucket)
+            finalize = self._predict_async_mesh(imgs, centers_xyz, centers_p,
+                                                cubes, cubes_p, bucket)
+            uploaded = raw_px
         else:
-            img_n, M_p = crop_normalize_batch(
-                self._frames_on_device(imgs, bucket),
-                self._pad(centers_uvd, bucket), self._pad(cubes, bucket),
-                np.asarray(self.paras), self.cfg.img_size)
-            M = M_p[:B]
+            p_np = crop_params_np(centers_p, cubes_p, np.asarray(self.paras),
+                                  self.cfg.img_size)
+            M = p_np.pop("M")[:B]
+            win = crop_windows(p_np, imgs.shape[1:], B)
+            img_n = crop_normalize_params(
+                self._frames_on_device(imgs, win), p_np, centers_p, cubes_p,
+                self.cfg.img_size, win)
+            uploaded = win.size
             out_host, copied = _to_host(self._infer(img_n)[:B])
 
             def finalize() -> np.ndarray:
@@ -472,17 +492,16 @@ class Predictor:
                         copied.synchronize()
                 return self.denormalize(out_host.numpy(), centers_xyz, M,
                                         cubes)
-        self._count(B, bucket)
+        self._count(B, bucket, raw_px, uploaded)
         return finalize
 
-    def _predict_async_mesh(self, imgs, centers_xyz, centers_uvd, cubes,
-                            bucket):
-        """:meth:`predict_async` under a mesh."""
+    def _predict_async_mesh(self, imgs, centers_xyz, centers_p, cubes,
+                            cubes_p, bucket):
+        """:meth:`predict_async` under a data mesh: the whole raw frames,
+        padded to ``bucket`` rows, go to the replicas."""
         B = len(imgs)
         with span("serving.pad"):
             frames = self._pad(imgs, bucket)
-        centers_p, cubes_p = (self._pad(centers_uvd, bucket),
-                              self._pad(cubes, bucket))
         Ms = []
 
         def run(dev, infer, rows):
@@ -500,20 +519,17 @@ class Predictor:
 
         return finalize
 
-    def _frames_on_device(self, imgs: np.ndarray, bucket: int):
-        """The raw frames padded to ``bucket`` rows (:meth:`_pad`) on the
-        device; on a GPU padded straight into a pinned buffer (by
-        PyTorch's copy, which splits a large copy over its threads) and
-        copied ``non_blocking``."""
+    def _frames_on_device(self, imgs: np.ndarray, win: Windows):
+        """The raw frames' crop windows packed into one flat float32
+        buffer (:func:`~awr_tpu_torch.data.windows.pack_windows`) on the
+        device; on a GPU packed straight into a pinned buffer and copied
+        ``non_blocking``."""
+        cuda = self.device.type == "cuda"
         with span("serving.pad"):
-            if self.device.type != "cuda":
-                return torch.from_numpy(self._pad(imgs, bucket))
-            src = torch.from_numpy(imgs)
-            host = torch.empty((bucket,) + imgs.shape[1:],
-                               dtype=torch.float32, pin_memory=True)
-            host[:len(imgs)].copy_(src)
-            host[len(imgs):].copy_(src[-1:].expand_as(host[len(imgs):]))
-        return host.to(self.device, non_blocking=True)
+            host = torch.empty(max(win.size, 1), dtype=torch.float32,
+                               pin_memory=cuda)
+            pack_windows(imgs, win, host)
+        return host.to(self.device, non_blocking=True) if cuda else host
 
     def denormalize(self, pred, centers_xyz, M, cubes) -> np.ndarray:
         """Normalized (B, J, 3) uvd -> camera (u px, v px, d mm)."""

@@ -651,6 +651,74 @@ def test_predict_pads_a_reversed_view_into_pinned_memory(cuda, B):
         pred.predict(np.ascontiguousarray(view), centers))
 
 
+def test_predict_packs_the_windows_into_pinned_memory(cuda):
+    """The batch cell's call, bf16 resnet_18 on 256 raw 480x640 frames:
+    the windows are packed into pinned memory, a buffer of the windows'
+    size (about a sixth of the 315 MB of whole frames), and copied
+    ``non_blocking`` (``predict_async`` returns while work queued before
+    it still runs); at the forward the buffer is freed and no tensor of
+    whole frames is alive; the joints are the full frames' crop's, bit
+    for bit."""
+    import weakref
+
+    from awr_tpu_torch import serving
+    from awr_tpu_torch.data.device import crop_normalize_batch
+    from awr_tpu_torch.data.synthetic import synthetic_frames
+    from awr_tpu_torch.geometry import xyz2uvd_np
+
+    cfg = resnet_config(img_size=128, compute_dtype="bfloat16")
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num,
+                                            cfg.downsample),
+                                torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, model, device=cuda)
+    imgs, _, centers = synthetic_frames(8, 14, seed=0)
+    imgs, centers = np.tile(imgs, (32, 1, 1)), np.tile(centers, (32, 1))
+    whole = imgs.nbytes
+    pred.predict(imgs, centers)  # warm: cuDNN, the pinned block
+    seen = {}
+    pack, on_device, infer = (serving.pack_windows, pred._frames_on_device,
+                              pred._infer)
+
+    def packer(frames, win, out):
+        seen.update(pinned=out.is_pinned(), size=win.size)
+        pack(frames, win, out)
+
+    def frames_on_device(*a):
+        flat = on_device(*a)
+        seen.update(bytes=flat.numel() * 4, ref=weakref.ref(flat))
+        return flat
+
+    def forward(img):
+        seen.update(freed=seen["ref"]() is None,
+                    at_forward=torch.cuda.memory_allocated())
+        return infer(img)
+
+    serving.pack_windows = packer
+    pred._frames_on_device, pred._infer = frames_on_device, forward
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of device work
+        slept = torch.cuda.Event()
+        slept.record()
+        finalize = pred.predict_async(imgs, centers)
+        running = not slept.query()
+        got = finalize()
+    finally:
+        serving.pack_windows = pack
+    assert running
+    assert seen["pinned"] and seen["freed"]
+    assert seen["bytes"] == 4 * seen["size"] < whole / 4
+    assert seen["at_forward"] - before < whole / 4
+    cubes = np.tile(np.asarray(cfg.cube, np.float64), (256, 1))
+    img_n, M = crop_normalize_batch(
+        torch.from_numpy(imgs).to(cuda),
+        xyz2uvd_np(centers, pred.paras, pred.flip), cubes,
+        np.asarray(pred.paras), cfg.img_size)
+    want = pred.denormalize(infer(img_n).cpu().numpy(), centers, M, cubes)
+    np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("net", ["hourglass_1", "resnet_18_int8"])
 def test_exported_program_runs_the_kernels(cuda, tmp_path, net):
     """``Predictor.export_program`` at img 64, B = 8, read back by

@@ -1,7 +1,9 @@
 """The port's host data modules against the JAX package's: the synthetic
 dataset's raw items, the prefetching loader, the staging thread, the
 evaluator and its dumps, and the figures (numpy-drawn, written by the
-port's PNG writer; cv2 reads them back here, where it is installed)."""
+port's PNG writer; cv2 reads them back here, where it is installed).
+And the serving crop's windows (``data/windows.py``): the crop of the
+packed windows against the full frames' crop, bit for bit."""
 
 import threading
 
@@ -15,10 +17,14 @@ from awr_tpu.data.transforms import normalize_labels as jax_normalize_labels
 from awr_tpu.evaluation import Evaluator as JaxEvaluator
 from awr_tpu.evaluation import load_prediction_txt as jax_load_txt
 from awr_tpu.vis import render_pose as jax_render_pose
+import torch
+
 from awr_tpu_torch.config import NYU_PARAS
+from awr_tpu_torch.data import windows
+from awr_tpu_torch.data.device import crop_normalize_params
 from awr_tpu_torch.data.pipeline import PrefetchLoader, prefetch_to_device
 from awr_tpu_torch.data.synthetic import SyntheticHandDataset
-from awr_tpu_torch.data.transforms import normalize_labels
+from awr_tpu_torch.data.transforms import crop_params_np, normalize_labels
 from awr_tpu_torch.evaluation import Evaluator, load_prediction_txt
 from awr_tpu_torch.utils.png import write_png
 from awr_tpu_torch.vis import SKELETONS, plot_pose, render_pose
@@ -266,3 +272,153 @@ def test_plot_pose_writes_a_png_cv2_reads(tmp_path):
     plot_pose(img, path, pred, gt)
     want = np.clip(np.rint(jax_render_pose(img, pred, gt)), 0, 255)
     np.testing.assert_array_equal(cv2.imread(path), want.astype(np.uint8))
+
+
+# ------------------------------------------------- the crop's windows
+
+WIN_HW = (48, 64)
+# NYU's focal lengths, the principal point at the small frame's center:
+# a 300 mm cube at 400 mm is a 44 px box
+WIN_PARAS = np.array([588.03, 587.07, 32.0, 24.0]) / [10, 10, 1, 1]
+WIN_S = 32
+# (u px, v px, z mm) hand centers, each case a batch
+WIN_CASES = {
+    # each box cut by one edge: left, right, top, bottom
+    "edges": [(5, 24, 400), (60, 24, 400), (32, 5, 400), (32, 44, 400)],
+    # a box larger than the whole frame, and one cut by two edges
+    "larger": [(32, 24, 100), (0, 0, 250)],
+    # boxes wholly outside the frame: empty windows, between non-empty ones
+    "outside": [(32, 24, 400), (-100, 24, 400), (32, 200, 400),
+                (200, -300, 400), (20, 20, 500)],
+    # centers behind the camera: inverted boxes, read as whole frames
+    "inverted": [(32, 24, -400), (10, 10, 500)],
+}
+
+
+def _window_batch(case, seed=0):
+    """(frames (B, H0, W0), centers_uvd (B, 3), cubes (B, 3)): random
+    depth with holes (0), and the case's centers, or for "random" seeded
+    centers and cubes of every kind above."""
+    rng = np.random.default_rng(seed)
+    if case == "random":
+        B = 9
+        c = np.stack([rng.uniform(-40, 104, B), rng.uniform(-40, 88, B),
+                      rng.uniform(60, 900, B)], 1)
+        cubes = rng.uniform(150, 400, (B, 3))
+    else:
+        c = np.asarray(WIN_CASES[case], np.float64)
+        cubes = np.tile([300.0, 300.0, 300.0], (len(c), 1))
+    frames = rng.uniform(50, 1500, (len(c),) + WIN_HW).astype(np.float32)
+    frames[frames < 300] = 0
+    return frames, c, cubes
+
+
+def _pad_rows(a, bucket):
+    return np.concatenate([a, np.repeat(a[-1:], bucket - len(a), 0)])
+
+
+def _clipped_area(s, e, size):
+    """The length of [s, e) inside [0, size); the whole axis for s >= e."""
+    return size if s >= e else max(0, min(e, size) - max(s, 0))
+
+
+def _crops(frames, c, cubes, n, pack=windows.pack_windows):
+    """The crop of the first ``n`` frames padded to ``len(c)`` rows, by
+    the full frames and by their packed windows, and the windows."""
+    p = crop_params_np(c, cubes, WIN_PARAS, WIN_S)
+    p.pop("M")
+    full = crop_normalize_params(
+        torch.from_numpy(_pad_rows(frames[:n], len(c))), p, c, cubes, WIN_S)
+    win = windows.crop_windows(p, WIN_HW, n)
+    buf = torch.full((max(win.size, 1),), np.nan)
+    pack(frames, win, buf)
+    return full, crop_normalize_params(buf, p, c, cubes, WIN_S, win), win, p
+
+
+@pytest.mark.parametrize("case,n,bucket", [
+    ("edges", 4, 4), ("larger", 2, 2), ("outside", 5, 5),
+    ("inverted", 2, 2), ("random", 9, 9),
+    # not a bucket size: the padding rows repeat the last frame's window
+    ("random", 5, 8), ("outside", 3, 8)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_windowed_crop_equals_the_full_frame_crop(case, n, bucket, seed):
+    """The crop of the packed windows is the full frames' crop bit for
+    bit; the buffer holds exactly the clipped boxes' pixels; and a frame
+    poisoned with NaN outside its window crops as before, so the crop
+    reads nothing outside the windows."""
+    frames, c, cubes = _window_batch(case, seed)
+    frames, c, cubes = frames[:n], _pad_rows(c[:n], bucket), _pad_rows(
+        cubes[:n], bucket)
+    full, got, win, p = _crops(frames, c, cubes, n)
+    assert torch.equal(got, full)
+    assert torch.isfinite(full).all()
+    areas = [_clipped_area(p["us"][i], p["ue"][i], WIN_HW[1])
+             * _clipped_area(p["vs"][i], p["ve"][i], WIN_HW[0])
+             for i in range(n)]
+    assert win.size == sum(areas)
+    assert (win.base[n:] == win.base[n - 1]).all()
+    poisoned = np.full_like(frames, np.nan)
+    for i in range(n):
+        rows = slice(win.v0[i], win.v0[i] + win.h[i])
+        cols = slice(win.u0[i], win.u0[i] + win.w[i])
+        poisoned[i, rows, cols] = frames[i, rows, cols]
+    assert torch.equal(_crops(poisoned, c, cubes, n)[0], full)
+
+
+def test_window_cases_cut_every_edge_and_empty_a_window():
+    """The cases above are what they claim: a box cut by each edge, one
+    larger than the frame, empty windows, and whole-frame windows."""
+    def wins(case):
+        frames, c, cubes = _window_batch(case)
+        return _crops(frames, c, cubes, len(c))[2]
+    H0, W0 = WIN_HW
+    e = wins("edges")
+    assert (e.u0[0], e.u0[1] + e.w[1], e.v0[2], e.v0[3] + e.h[3]) == (
+        0, W0, 0, H0)
+    assert (e.w[:2] < 44).all() and (e.h[2:] < 44).all()
+    lg = wins("larger")
+    assert (lg.v0[0], lg.u0[0], lg.h[0], lg.w[0]) == (0, 0, H0, W0)
+    out = wins("outside")
+    assert [int(a) for a in out.h * out.w][1:4] == [0, 0, 0]
+    assert out.size == out.h[0] * out.w[0] + out.h[4] * out.w[4]
+    inv = wins("inverted")
+    assert (inv.h[0], inv.w[0]) == (H0, W0)
+
+
+@pytest.mark.parametrize("view", ["reversed", "every_other", "float_rows"])
+def test_window_packers_agree_on_views(view, monkeypatch):
+    """The C++ packer (over three or four threads: a MiB a thread) and
+    the numpy loop pack the same bytes, from a view with negative strides
+    on both axes, every other frame, and rows of an array with a wider
+    row pitch."""
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 1000, (8, 480, 700)).astype(np.float32)
+    imgs = {"reversed": base[:, ::-1, :640][:, :, ::-1],
+            "every_other": base[::2, :, :640],
+            "float_rows": base[:, :, 30:670]}[view]
+    n = len(imgs)
+    c = np.tile([[320.0, 240.0, 100.0]], (n, 1))  # whole-frame windows
+    c[1] = [100.0, 400.0, 700.0]
+    p = crop_params_np(c, np.tile([300.0] * 3, (n, 1)),
+                       np.asarray(NYU_PARAS), WIN_S)
+    win = windows.crop_windows(p, (480, 640), n)
+    assert win.size >= 3 * (1 << 18)  # three threads or more
+    monkeypatch.setattr(torch, "get_num_threads", lambda: 4)
+    got = torch.full((win.size,), np.nan)
+    windows.pack_windows(imgs, win, got)
+    want = np.full(win.size, np.nan, np.float32)
+    windows._pack_numpy(imgs, win, want)
+    assert windows._packer() is not None  # c++ is on PATH here
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert np.isfinite(want).all()
+
+
+def test_pack_windows_refuses_a_short_buffer():
+    frames, c, cubes = _window_batch("edges")
+    p = crop_params_np(c, cubes, WIN_PARAS, WIN_S)
+    win = windows.crop_windows(p, WIN_HW, len(c))
+    with pytest.raises(ValueError):
+        windows.pack_windows(frames, win, torch.empty(win.size - 1))
+    with pytest.raises(ValueError):
+        windows.pack_windows(frames.astype(np.float64), win,
+                             torch.empty(win.size))

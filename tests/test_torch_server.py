@@ -29,6 +29,7 @@ from awr_tpu.serving import Predictor as JaxPredictor
 from awr_tpu_torch import kernels, server
 from awr_tpu_torch.config import hourglass_config, resnet_config
 from awr_tpu_torch.data.device import crop_normalize_batch
+from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.data.synthetic import synthetic_frames
 from awr_tpu_torch.geometry import xyz2uvd_np
 from awr_tpu_torch.models import build_model
@@ -140,8 +141,10 @@ def test_healthz_has_the_jax_keys(servers, frames):
                              "shape": list(imgs[1].shape),
                              "center_xyz": centers[1].tolist()})
     h, hj = _get(ts.port), _get(js.port)
-    # the port reports two keys more (tests/test_torch_tracing.py)
-    assert set(h) == set(hj) | {"padded_share", "queue_wait_ms"}
+    # the port reports three keys more (tests/test_torch_tracing.py,
+    # test_healthz_reports_uploaded_share)
+    assert set(h) == set(hj) | {"padded_share", "uploaded_share",
+                                "queue_wait_ms"}
     assert h["ok"] and h["net"] == "hourglass_1" and h["jt_num"] == 14
     assert h["int8"] is False  # hasattr(predictor, "quant") would say True
     assert h["batch_dispatches"] >= 1 and h["frames"] >= 1
@@ -149,6 +152,27 @@ def test_healthz_has_the_jax_keys(servers, frames):
     for key, st in h["service_model_ms"].items():
         assert re.fullmatch(r"8@480x640", key), key
         assert 0 <= st["p50"] <= st["p90"] and st["n"] >= 1
+
+
+def test_healthz_reports_uploaded_share(predictors, frames):
+    """``/healthz`` ``uploaded_share``: 0 before any call, then the
+    Predictor's uploaded pixels over its raw frames' pixels: one frame
+    whose crop window lies inside it, alone in a bucket of 8 whole
+    frames."""
+    pred = Predictor(predictors[1].cfg, predictors[1].model, device="cpu")
+    imgs, centers = frames
+    with AWRServer(pred, port=0, max_batch=8).start() as srv:
+        assert _get(srv.port)["uploaded_share"] == 0.0
+        _joints(srv, "/predict", {"img_b64": _b64(imgs[0]),
+                                  "shape": list(imgs[0].shape),
+                                  "center_xyz": centers[0].tolist()})
+        share = _get(srv.port)["uploaded_share"]
+    p = crop_params_np(xyz2uvd_np(centers[:1], pred.paras, pred.flip),
+                       np.tile(pred.cfg.cube, (1, 1)), np.asarray(pred.paras),
+                       IMG)
+    area = int(p["ue"][0] - p["us"][0]) * int(p["ve"][0] - p["vs"][0])
+    assert 0 < area < imgs[0].size
+    assert share == pytest.approx(area / (8 * imgs[0].size))
 
 
 def test_healthz_reports_int8_after_quantize(frames):

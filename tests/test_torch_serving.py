@@ -1,6 +1,6 @@
 """The port's serving path end to end against the JAX package's
-``Predictor`` (same weights, same raw frames), and the port's import
-boundary."""
+``Predictor`` (same weights, same raw frames), the Predictor's packed crop
+windows against the full frames' crop, and the port's import boundary."""
 
 import ast
 import copy
@@ -15,11 +15,15 @@ from torch_port_weights import one_thread  # noqa: F401
 
 from awr_tpu.config import hourglass_config as jax_hourglass_config
 from awr_tpu.serving import Predictor as JaxPredictor
-from awr_tpu_torch.config import hourglass_config
+from awr_tpu_torch import export
+from awr_tpu_torch.config import hourglass_config, resnet_config
+from awr_tpu_torch.data import windows
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.data.synthetic import synthetic_frames
-from awr_tpu_torch.geometry import xyz2uvd_np
+from awr_tpu_torch.data.transforms import crop_params_np
+from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
+from awr_tpu_torch.models.common import torch_default_init_
 from awr_tpu_torch.models.weights import load_flax_variables
 from awr_tpu_torch.serving import Predictor
 from awr_tpu_torch.training import qat
@@ -159,6 +163,127 @@ def test_from_torch_reads_reference_checkpoint(tmp_path, predictors, frames):
     imgs, _, centers = frames
     np.testing.assert_array_equal(loaded.predict(imgs, centers),
                                   pred.predict(imgs, centers))
+
+
+# -------------------------------------------------- the crop's windows
+
+# (u px, v px, z mm) centers of boxes cut by the left, right, top and
+# bottom edges, one larger than the frame, one wholly outside it
+EDGE_UVD = [(40, 240, 700), (610, 240, 700), (320, 20, 700),
+            (320, 470, 700), (320, 240, 120), (-400, 240, 700)]
+
+
+def _edge_frames(frames):
+    """Six frames (the synthetic hands, repeated) with the centers of
+    EDGE_UVD, in camera xyz mm."""
+    imgs = np.resize(frames[0], (len(EDGE_UVD),) + frames[0].shape[1:])
+    cfg = hourglass_config()
+    return imgs, uvd2xyz_np(np.asarray(EDGE_UVD, np.float64), cfg.paras,
+                            cfg.flip).astype(np.float64)
+
+
+def _full_frame_predict(pred, imgs, centers_xyz):
+    """``predict`` through the full frames' crop: the whole frames padded
+    to the bucket, ``crop_normalize_batch``, the forward and decode, and
+    the host's de-normalization."""
+    B, bucket = len(imgs), pred._bucket(len(imgs))
+    cubes = np.tile(np.asarray(pred.cfg.cube, np.float64), (B, 1))
+    cu = xyz2uvd_np(centers_xyz, pred.paras, pred.flip)
+    img_n, M = crop_normalize_batch(
+        torch.from_numpy(pred._pad(np.ascontiguousarray(imgs), bucket)),
+        pred._pad(cu, bucket), pred._pad(cubes, bucket),
+        np.asarray(pred.paras), pred.cfg.img_size)
+    out = pred._infer(img_n)[:B].numpy()
+    return pred.denormalize(out, centers_xyz, M[:B], cubes)
+
+
+@pytest.fixture(scope="module")
+def resnet_predictor():
+    cfg = resnet_config(img_size=IMG)
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num,
+                                            cfg.downsample),
+                                torch.Generator().manual_seed(0))
+    return Predictor(cfg, model, device="cpu")
+
+
+@pytest.mark.parametrize("net", ["hourglass_1", "resnet_18"])
+@pytest.mark.parametrize("kind", ["hands", "edges", "reversed"])
+def test_predict_through_windows_equals_the_full_frame_crop(
+        predictors, resnet_predictor, frames, net, kind):
+    """``predict`` packs only the crop windows; its joints are those of
+    the full frames' crop, bit for bit: the synthetic hands (3 frames, a
+    bucket of 8), boxes cut by each edge, larger than the frame and
+    wholly outside it, and a view reversed on both image axes."""
+    pred = predictors[1] if net == "hourglass_1" else resnet_predictor
+    imgs, _, centers = frames
+    if kind == "edges":
+        imgs, centers = _edge_frames(frames)
+    elif kind == "reversed":
+        imgs = imgs[:, ::-1, ::-1]
+    got = pred.predict(imgs, centers)
+    assert np.isfinite(got).all()
+    np.testing.assert_array_equal(got, _full_frame_predict(pred, imgs,
+                                                           centers))
+
+
+def test_predict_packs_with_the_numpy_loop_without_a_compiler(
+        predictors, frames, monkeypatch):
+    """Where no host C++ compiler is found, the numpy loop packs the same
+    windows: the same joints."""
+    _, pred = predictors
+    imgs, centers = _edge_frames(frames)
+    want = pred.predict(imgs, centers)
+    monkeypatch.setattr(windows.kernels, "host_compiler", lambda: None)
+    windows._packer.cache_clear()
+    try:
+        assert windows._packer() is None
+        np.testing.assert_array_equal(pred.predict(imgs, centers), want)
+    finally:
+        windows._packer.cache_clear()
+
+
+def test_predictor_counts_raw_and_uploaded_pixels(predictors, frames):
+    """``n_raw_px``: a call's bucket rows of whole frames; ``n_uploaded_px``:
+    the pixels of its packed windows, the real rows' clipped boxes (the
+    padding rows share the last one)."""
+    pred = Predictor(predictors[1].cfg, predictors[1].model, device="cpu")
+    assert (pred.n_raw_px, pred.n_uploaded_px) == (0, 0)
+    imgs, centers = _edge_frames(frames)
+    pred.predict(imgs, centers)
+    cubes = np.tile(np.asarray(pred.cfg.cube, np.float64), (len(imgs), 1))
+    p = crop_params_np(xyz2uvd_np(centers, pred.paras, pred.flip), cubes,
+                       np.asarray(pred.paras), IMG)
+    H0, W0 = imgs.shape[1:]
+    clip = lambda s, e, n: max(0, min(e, n) - max(s, 0))  # noqa: E731
+    areas = [clip(p["us"][i], p["ue"][i], W0) * clip(p["vs"][i], p["ve"][i],
+                                                     H0)
+             for i in range(len(imgs))]
+    assert areas[-1] == 0 and areas[-2] == H0 * W0  # outside; larger
+    assert pred.n_raw_px == 8 * H0 * W0
+    assert pred.n_uploaded_px == sum(areas)
+    assert pred.n_uploaded_px / pred.n_raw_px == sum(areas) / (8 * H0 * W0)
+
+
+def test_raw_export_program_takes_full_frames(predictors, frames):
+    """The exported raw program keeps its signature: whole (B, H0, W0)
+    frames and the crop parameters, no windows; its joints are those of
+    the Predictor's windowed ``predict`` within the float32 inverse's
+    0.01 px."""
+    _, pred = predictors
+    imgs, _, centers = frames
+    imgs = np.resize(imgs, (8,) + imgs.shape[1:])
+    centers = np.resize(centers, (8, 3))
+    prog = export.load(pred.export_program(8, raw_hw=imgs.shape[1:]),
+                       device="cpu")
+    assert prog.raw_hw == imgs.shape[1:]
+    cubes = np.tile(np.asarray(pred.cfg.cube, np.float64), (8, 1))
+    cu = xyz2uvd_np(centers, pred.paras, pred.flip)
+    got = prog.call(imgs, crop_params_np(cu, cubes, np.asarray(pred.paras),
+                                         IMG),
+                    cu[:, 2].astype(np.float32),
+                    cubes[:, 2].astype(np.float32)).numpy()
+    np.testing.assert_allclose(got, pred.predict(imgs, centers), rtol=0,
+                               atol=0.01)
 
 
 # ------------------------------------------------ data mode over a mesh

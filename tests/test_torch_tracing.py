@@ -160,9 +160,9 @@ def test_predictor_counts_padded_rows(model, frames):
 
 
 def test_raw_frames_are_freed_before_the_forward(model, frames):
-    """The padded raw frames on the device (315 MB at the batch cell's
-    B = 256) are no longer referenced when the forward runs: nothing
-    keeps them alive past the crop."""
+    """The raw frames' packed crop windows on the device (51 MB at the
+    batch cell's B = 256, whole frames 315 MB) are no longer referenced
+    when the forward runs: nothing keeps them alive past the crop."""
     import weakref
 
     imgs, _, centers = frames
