@@ -29,7 +29,9 @@ Under a profiler the train steps name their host phases as spans
 (:func:`awr_tpu_torch.utils.profiling.span`): ``train.preprocess`` (the
 raw form's device crop and augmentation), ``train.forward`` (encode,
 forward and losses of a microbatch), ``train.backward`` and
-``train.optimizer`` (``zero_grad`` and ``step``).
+``train.optimizer`` (``zero_grad`` and ``step``); inside
+``train.forward``, ``train.supervise`` holds every supervised stack's
+decode and its two losses, once a microbatch.
 """
 
 from __future__ import annotations
@@ -119,7 +121,9 @@ def make_train_step(model, optimizer, cfg):
         nstack = preds.shape[0]
         stacks = (range(nstack) if cfg.supervise_all_stacks
                   else [nstack - 1])
-        return _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg, w_sum)
+        with span("train.supervise"):
+            return _losses(preds, stacks, img, jt_uvd, offset_gt, w, cfg,
+                           w_sum)
 
     def train_step(batch):
         img, jt_uvd, w = batch["img"], batch["jt_uvd"], batch.get("w")

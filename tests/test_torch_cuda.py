@@ -429,6 +429,93 @@ def test_bf16_train_step_on_the_card(cuda, net):
                                rtol=0.05)
 
 
+def hourglass_8_step_gaps(cuda, B=4, seed=2 ** 31 + 11):
+    """One raw train step of ``hourglass_8`` at img 128 on 480x640
+    frames, every stack supervised (coordinate weight 0.1, so the decode
+    backward's result reaches the gradients), against the benchmark's
+    plain float32 reference (``portbench/reference``) from the same
+    weights, frames and augmentation, in the current TF32 setting.
+    Returns the gaps (``loss`` relative; ``joints`` the widest
+    coordinate; ``grad`` the widest leaf's ``|g - g_ref|`` over the
+    larger of its and the median leaf's reference norm, leaves whose
+    reference norm is under a thousandth of the median left out: a conv
+    bias before a train-mode BatchNorm has a gradient of rounding alone)
+    and the step's (encode, decode, decode backward) launches."""
+    from awr_tpu_torch.config import hourglass_config
+    from awr_tpu_torch.data.device import (crop_param_tensors,
+                                           draw_augment_params)
+    from awr_tpu_torch.geometry import xyz2uvd_np
+    from awr_tpu_torch.training.optim import make_optimizer
+    from awr_tpu_torch.training.steps import make_raw_train_step
+    from portbench import frames, harness, weights
+    from portbench.reference import data
+    from portbench.reference import steps as ref_steps
+
+    cfg = dict(harness.config("hourglass_8"), coord_weight=0.1)
+    S = cfg["img_size"]
+    pool = frames.Pool(cfg, 16, seed, cuda)
+    state = weights.make(cfg, seed, pool, cuda)
+    aug = draw_augment_params(torch.Generator(cuda).manual_seed(seed), B,
+                              10.0, 0.1, 180.0)
+    img = torch.from_numpy(pool.frames[:B]).to(cuda)
+    centers_uvd = xyz2uvd_np(pool.centers[:B], pool.paras, pool.flip)
+    cubes = pool.cubes(B)
+
+    model = build_model(cfg["net"], cfg["joint_num"]).to(cuda)
+    model.load_state_dict(state)
+    step = make_raw_train_step(
+        model, make_optimizer(model.parameters(), "adam", 1e-3),
+        hourglass_config(cfg["nstack"], img_size=S,
+                         kernel_size=cfg["kernel_size"],
+                         dense_weight=cfg["dense_weight"],
+                         coord_weight=cfg["coord_weight"]),
+        pool.paras, pool.flip)
+    raw = dict(img=img,
+               jt_xyz=torch.from_numpy(pool.joints[:B]).float().to(cuda),
+               centers_uvd=torch.from_numpy(centers_uvd).float().to(cuda),
+               cubes=torch.from_numpy(cubes).float().to(cuda))
+    def counters():
+        return (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
+                decode_cuda.BACKWARD_LAUNCHES)
+
+    before = counters()
+    got = step(raw, crop_param_tensors(centers_uvd, cubes, pool.paras, S,
+                                       cuda), aug)
+    launches = [b - a for a, b in zip(before, counters())]
+
+    ref = weights.reference_model(cfg, state, cuda)
+    ref_img, jt_uvd = data.train_batch(img, pool.joints[:B],
+                                       pool.centers[:B], cubes, pool.paras,
+                                       pool.flip, aug, S)
+    loss, jt = ref_steps.train_step(ref, ref_steps.Adam(ref.parameters(),
+                                                        1e-3),
+                                    ref_img, jt_uvd, cfg)
+    want = {n: p.grad.double() for n, p in ref.named_parameters()}
+    grads = {n: p.grad.double() for n, p in model.named_parameters()}
+    norms = {n: float(g.norm()) for n, g in want.items()}
+    med = float(np.median(list(norms.values())))
+    gaps = dict(
+        loss=abs(float(got["loss"]) - float(loss)) / abs(float(loss)),
+        joints=float((got["jt_uvd_pred"] - jt).abs().max()),
+        grad=max(float((grads[n] - want[n]).norm()) / max(norms[n], med)
+                 for n in want if norms[n] >= 1e-3 * med))
+    return gaps, launches
+
+
+def test_hourglass_8_raw_train_step_on_the_card(cuda):
+    """``hourglass_8``'s raw train step at B = 4 against the plain float32
+    reference, TF32 off (:func:`hourglass_8_step_gaps`): one encode,
+    8 decodes and 8 decode backwards, one of each a stack; the loss to
+    1e-4 relative and the joints to 4e-3, the limits of the benchmark's
+    train cells; each gradient to 1e-3 of its scale: float32 read
+    1.3e-5 and 1.1e-4 on two seeds, a lower precision (TF32) 0.009 and
+    0.0098."""
+    gaps, launches = hourglass_8_step_gaps(cuda)
+    assert launches == [1, 8, 8]
+    assert gaps["loss"] < 1e-4 and gaps["joints"] < 4e-3, gaps
+    assert gaps["grad"] < 1e-3, gaps
+
+
 def test_trainer_epoch_on_the_card(cuda, tmp_path):
     """One raw-mode epoch of the Trainer on the card: pinned staging on
     the steps' stream, one encode, decode and decode backward a train

@@ -204,8 +204,9 @@ def test_prefetch_spans_on_the_stager_and_the_consumer():
 # -------------------------------------------------------- the train step
 
 def test_raw_train_step_spans(model, frames):
-    """One raw-mode train step names its preprocessing, forward,
-    backward and optimizer (``zero_grad`` and ``step``), in order."""
+    """One raw-mode train step names its preprocessing, forward (with the
+    supervision of its stacks inside it), backward and optimizer
+    (``zero_grad`` and ``step``), in order."""
     imgs, joints, centers = frames
     cfg = hourglass_config(img_size=IMG)
     n = 2
@@ -226,7 +227,7 @@ def test_raw_train_step_spans(model, frames):
     assert torch.isfinite(metrics["loss"])
     names = [s[0] for s in _spans(prof) if s[0].startswith("train.")]
     assert names == ["train.preprocess", "train.optimizer", "train.forward",
-                     "train.backward", "train.optimizer"]
+                     "train.supervise", "train.backward", "train.optimizer"]
 
 
 # ----------------------------------------------- queue wait and /healthz
