@@ -18,6 +18,9 @@ loads (:mod:`awr_tpu_torch.export`).
 | ``encode`` | ``encode_cuda.joint2offset_cuda`` | ``functional.joint2offset`` |
 | ``int8_matmul`` | ``int8_cuda.int8_matmul_cuda`` | ``int8.int8_matmul`` |
 | ``deconv4x4s2_int8`` | ``int8_cuda.deconv4x4s2_int8_cuda`` | ``int8.deconv4x4s2_int8`` |
+| ``bias_relu_`` | ``folded_cuda.bias_relu_cuda`` | ``folded.bias_relu_`` |
+| ``head_out`` | ``folded_cuda.head_out_cuda`` | ``folded.head_out`` |
+| ``stem_pool`` | ``folded_cuda.stem_pool_cuda`` | ``folded.stem_pool`` |
 
 Every op takes its tensors dense (``.contiguous()``, a copy only where
 they are not), the int8 GEMM's ``b`` aside, which its wrapper lays out
@@ -27,6 +30,17 @@ and a conv whose input is channels-last gives a channels-last output on
 the CPU where its fake output was contiguous, so a ``.contiguous()`` in
 the model is traced away.  The kernels read a dense layout, and the
 plain versions then sum in the same order as in eager mode.
+
+The last three are the bf16 inference form's passes between its convs
+(:mod:`awr_tpu_torch.models.inference`), 21 calls a resnet_18 forward on
+a path the host bounds.  They are defined on a
+``torch.library.Library`` fragment, with the same CPU/CUDA split and
+fake implementations, rather than through ``custom_op``: a call of a
+``custom_op`` that mutates its input took about 30 us of host time
+under ``no_grad``, a call of an op defined this way about 4 us (empty
+implementations, an Intel Xeon core, PyTorch 2.13).  They have no gradient.  ``bias_relu_`` writes into its
+first argument and returns nothing; the Python function of that name
+returns the argument.
 
 ``decode`` is differentiable in its map: its gradient is the op
 ``decode_backward``, from the saved output and softmax statistics (the
@@ -43,7 +57,10 @@ import functools
 import torch
 from torch import Tensor
 
-from awr_tpu_torch.ops import decode_cuda, encode_cuda, functional, int8_cuda
+from typing import Optional
+
+from awr_tpu_torch.ops import (decode_cuda, encode_cuda, folded, folded_cuda,
+                               functional, int8_cuda)
 from awr_tpu_torch.ops import int8 as plain_int8
 
 NAMESPACE = "awr_tpu_torch"
@@ -240,3 +257,54 @@ def _deconv4x4s2_int8_cuda(xq, wq, scale, out_dtype):
 def _deconv4x4s2_int8_fake(xq, wq, scale, out_dtype):
     B, H, W, _ = xq.shape
     return xq.new_empty((B, wq.shape[1], 2 * H, 2 * W), dtype=out_dtype)
+
+
+# ----------------------------------------------- bf16 inference form
+
+_form = torch.library.Library(NAMESPACE, "FRAGMENT")
+_form.define("bias_relu_(Tensor(a!) y, Tensor bias, Tensor? residual) -> ()")
+_form.define("head_out(Tensor y, Tensor bias) -> Tensor")
+_form.define("stem_pool(Tensor x, Tensor weight, Tensor bias) -> Tensor")
+
+
+def _bias_relu_cpu(y, bias, residual):
+    folded.bias_relu_(y, bias, residual)  # an op of schema "-> ()"
+
+
+for _name, _cpu, _cuda in (
+        ("bias_relu_", _bias_relu_cpu, folded_cuda.bias_relu_cuda),
+        ("head_out", folded.head_out, folded_cuda.head_out_cuda),
+        ("stem_pool", folded.stem_pool, folded_cuda.stem_pool_cuda)):
+    _form.impl(_name, _cpu, "CPU")
+    _form.impl(_name, _cuda, "CUDA")
+
+
+@torch.library.register_fake(f"{NAMESPACE}::bias_relu_", lib=_form)
+def _bias_relu_fake(y, bias, residual):
+    return None
+
+
+@torch.library.register_fake(f"{NAMESPACE}::head_out", lib=_form)
+def _head_out_fake(y, bias):
+    return y.new_empty(y.shape, dtype=bias.dtype)
+
+
+@torch.library.register_fake(f"{NAMESPACE}::stem_pool", lib=_form)
+def _stem_pool_fake(x, weight, bias):
+    B, _, H, W = x.shape
+    return x.new_empty((B, (H + 1) // 2, (W + 1) // 2, weight.shape[0]),
+                       dtype=weight.dtype).permute(0, 3, 1, 2)
+
+
+_bias_relu_op = torch.ops.awr_tpu_torch.bias_relu_.default
+head_out = torch.ops.awr_tpu_torch.head_out.default
+stem_pool = torch.ops.awr_tpu_torch.stem_pool.default
+
+
+def bias_relu_(y: Tensor, bias: Tensor,
+               residual: Optional[Tensor] = None) -> Tensor:
+    """relu(y + bias + residual) in place on ``y`` (B, C, H, W), ``bias``
+    per channel, computed in ``bias``'s dtype and rounded once; returns
+    ``y``."""
+    _bias_relu_op(y, bias, residual)
+    return y

@@ -32,7 +32,7 @@ API (all JSON):
 ``GET /healthz``
     -> {"ok": true, "net": ..., "jt_num": ..., "int8": ...,
         "batch_dispatches": N, "frames": N, "shed": N, "rejected": N,
-        "padded_share": x, "uploaded_share": x,
+        "padded_share": x, "uploaded_share": x, "folded_share": x,
         "queue_wait_ms": {"p50", "p95", "n"},
         "service_model_ms": {...}}
 
@@ -147,10 +147,12 @@ class AWRServer:
                     "rejected": server.batcher.n_rejected,
                     # the share of the rows sent to the device that were
                     # bucket padding, the share of the raw frames' pixels
-                    # uploaded (their crop windows), and the requests'
-                    # queue wait (ms)
+                    # uploaded (their crop windows), the share of the
+                    # frames served through the inference form, and the
+                    # requests' queue wait (ms)
                     "padded_share": padded_share(server.predictor),
                     "uploaded_share": uploaded_share(server.predictor),
+                    "folded_share": folded_share(server.predictor),
                     "queue_wait_ms": server.batcher.queue_wait_ms(),
                     # measured per-(bucket, frame-shape) service (ms)
                     # driving the deadline machinery; {} until traffic
@@ -299,6 +301,13 @@ def uploaded_share(predictor) -> float:
     first call)."""
     raw = getattr(predictor, "n_raw_px", 0)
     return getattr(predictor, "n_uploaded_px", 0) / raw if raw else 0.0
+
+
+def folded_share(predictor) -> float:
+    """The share of the frames the Predictor served through the inference
+    form of its backbone (``models/inference.py``; 0 before the first)."""
+    n = getattr(predictor, "n_frames", 0)
+    return getattr(predictor, "n_folded_frames", 0) / n if n else 0.0
 
 
 def main(argv=None):

@@ -11,7 +11,11 @@ program (:mod:`awr_tpu_torch.export` loads it).  :meth:`Predictor.quantize`
 switches a Predictor of either backbone to int8 inference,
 :meth:`Predictor.quantize_qat` after a validated QAT fine-tune.  The backbone runs
 in ``config.compute_dtype`` (float32 or bfloat16; the weights stay
-float32), the decode on its float32 map.
+float32), the decode on its float32 map.  On one device a ResNet-deconv
+in bfloat16 that is not quantized serves through its inference form
+(:mod:`awr_tpu_torch.models.inference`: BatchNorm folded into the convs,
+channels-last, one bias-residual-ReLU pass a conv), a snapshot of the
+weights taken where the replicas are (``_replicate``).
 
 Data mode (the JAX package's ``Predictor(mesh=make_mesh(...))``): with a
 :class:`~awr_tpu_torch.parallel.mesh.Mesh` of more than one device the
@@ -48,6 +52,7 @@ from awr_tpu_torch.data.windows import Windows, crop_windows, pack_windows
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import set_compute_dtype
+from awr_tpu_torch.models.inference import inference_form
 from awr_tpu_torch.models.quant import calibrate, set_int8
 from awr_tpu_torch.models.weights import load_reference_state_dict
 from awr_tpu_torch.parallel.mesh import SPATIAL_AXIS, data_sharding
@@ -169,15 +174,30 @@ class Predictor:
         self.n_padded_rows = 0
         self.n_raw_px = 0
         self.n_uploaded_px = 0
+        # real rows served through the inference form (``_replicate``)
+        self.n_folded_frames = 0
 
     def _replicate(self) -> None:
         """``self._replicas``: ``(device, model, infer step)`` of
         ``self.model`` and, under a mesh, of a copy of it (weights,
         BatchNorm statistics, quantization mode and int8 scales) on each
         other mesh device; ``self._infer``: the first replica's step, or
-        in spatial mode the step that runs the replicas band by band."""
-        self._replicas = [(self.device, self.model,
-                           make_infer_step(self.model, self.cfg))]
+        in spatial mode the step that runs the replicas band by band.
+
+        On one device, a ResNet-deconv in bfloat16, in eval mode, with no
+        layer quantized serves through its inference form
+        (:func:`~awr_tpu_torch.models.inference.inference_form`: the
+        BatchNorms folded into the convs, channels-last, the bias,
+        residual and ReLU in each conv's epilogue), and ``self._folded``
+        says so.  Like the replicas, the form is a snapshot of the
+        weights and statistics as they are here: a later change to
+        ``self.model`` reaches the served forward only through another
+        call of this method (:meth:`quantize` and :meth:`quantize_qat`
+        make one).  :meth:`export_program` traces ``self.model``."""
+        form = inference_form(self.model) if self.mesh is None else None
+        self._folded = form is not None
+        self._replicas = [(self.device, self.model, make_infer_step(
+            self.model if form is None else form, self.cfg))]
         for d in (self.mesh.devices[1:] if self.mesh is not None else ()):
             replica = copy.deepcopy(self.model).to(d).eval()
             self._replicas.append((d, replica,
@@ -417,6 +437,7 @@ class Predictor:
         """Count a call's ``n`` real rows, its padding up to ``bucket``,
         and its raw frames' pixels and those it uploaded."""
         self.n_frames += n
+        self.n_folded_frames += n if self._folded else 0
         self.n_padded_rows += bucket - n
         self.n_raw_px += raw_px
         self.n_uploaded_px += uploaded_px

@@ -71,9 +71,11 @@ float32, TF32 off (then bf16, phase ``bf16``):
   HOST_RAW_MPE_ATOL); and one evaluation-CLI call on each of the ICVL
   (J = 16), MSRA and HANDS17 (J = 21) directories;
 - bf16: ``compute_dtype="bfloat16"`` at the same widths: hourglass_1
-  and resnet_18 requests, and resnet_18 int8 requests under bf16 (20
-  int8 GEMMs and 3 int8 deconvs with the bf16 epilogue each), with exact
-  launch counts, each path's joints against the float32 joints of the
+  and resnet_18 requests (resnet_18 through the inference form of
+  ``models/inference.py``: one stem_pool, 19 bias_relu and one head_out
+  launch each), and resnet_18 int8 requests under bf16 (20 int8 GEMMs
+  and 3 int8 deconvs with the bf16 epilogue each), with exact launch
+  counts, each path's joints against the float32 joints of the
   same seeded weights (BF16_DRIFT_MAX), request and device times at
   B = 1, 32 and 256; the raw train step of each family at B = 32 (exact
   launch counts, device time beside the float32 step's); the training
@@ -174,7 +176,8 @@ from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
 from awr_tpu_torch.models.quant import (QuantConv, quant_layers, set_int8,
                                         set_quant_mode)
-from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
+from awr_tpu_torch.ops import (decode_cuda, encode_cuda, folded, folded_cuda,
+                               int8, int8_cuda)
 from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, merge_softmax_bands,
                                           offset2joint_softmax,
@@ -227,6 +230,18 @@ KERNELS = [
     dict(name="decode_rows", route="cuda", module=decode_cuda,
          counter="ROWS_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
          replaces="awr_tpu/ops/pallas_decode.py:69", path="spatial"),
+    # the bf16 inference form's passes between its cuDNN convs
+    # (models/inference.py), on bf16 resnet_18 requests; on the TPU, XLA
+    # fuses this work into the convs of the jitted forward
+    dict(name="stem_pool", route="cuda", module=folded_cuda,
+         counter="STEM_POOL_LAUNCHES", source="awr_tpu_torch/csrc/folded.cu",
+         replaces="none (XLA fusion)", path="bf16_serve_resnet_18"),
+    dict(name="bias_relu", route="cuda", module=folded_cuda,
+         counter="BIAS_RELU_LAUNCHES", source="awr_tpu_torch/csrc/folded.cu",
+         replaces="none (XLA fusion)", path="bf16_serve_resnet_18"),
+    dict(name="head_out", route="cuda", module=folded_cuda,
+         counter="HEAD_OUT_LAUNCHES", source="awr_tpu_torch/csrc/folded.cu",
+         replaces="none (XLA fusion)", path="bf16_serve_resnet_18"),
 ]
 SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
 # host C++ built beside the kernels: the PNG unfilter of the datasets
@@ -399,6 +414,23 @@ SPATIAL_BATCHES = (1, 32)
 SPATIAL_ATOL = 1e-5
 SPATIAL_BF16_ATOL = 0.15
 SPATIAL_REPS = {1: 20, 32: 10}
+# The inference form's passes at the shapes of a resnet_18 request (img
+# 128, 14 joints) at B = 32: bias_relu's (C, H, with a residual) for each
+# distinct shape of its 19 launches (two 3x3 convs a block, four blocks'
+# worth a stage, with the block's residual on the second; the three
+# deconvs), head_out's (4J, F), the stem's image side.  bias_relu and
+# head_out are one float32 sum and one rounding, as their plain versions,
+# so the bar is equality; stem_pool's 25-tap float32 sums run in another
+# order than cuDNN's, so an output may round to the other side of a
+# bf16 boundary: one bf16 step, 2**-7 of the value.
+FOLDED_EPILOGUES = [(64, 64, False, 2), (64, 64, True, 2),
+                    (128, 32, False, 2), (128, 32, True, 2),
+                    (256, 16, False, 3), (256, 16, True, 2),
+                    (512, 8, False, 2), (512, 8, True, 2),
+                    (256, 32, False, 1), (256, 64, False, 1)]
+FOLDED_HEAD = (56, 64)
+FOLDED_STEM = 128
+STEM_RTOL = 2.0 ** -7
 # float operations for each (sample, joint, pixel): decode (mask, logit,
 # max, exp, sum, distance, weight, three offset and three coordinate
 # products and sums); encode (three differences, squares and sums, sqrt,
@@ -610,6 +642,7 @@ def phase_kernels():
         if not plain or lib is False or not torch.equal(got, again):
             raise AssertionError(f"int8 GEMM disagrees at {(M, K, N)}")
     errs["int8_gemm"] = 0.0
+    errs.update(check_folded())
     for name, dtype in (("deconv_int8", torch.float32),
                         ("deconv_int8_bf16", torch.bfloat16)):
         err = 0.0
@@ -630,6 +663,117 @@ def phase_kernels():
                                      f"{(B, H, W, c_in, c_out)}")
         errs[name] = err
     return errs
+
+
+def folded_args(B, C, H, residual, seed=SEED):
+    """bias_relu's seeded arguments: a channels-last bf16 (B, C, H, H)
+    tensor, a float32 bias and the residual (or None)."""
+    g = torch.Generator("cuda").manual_seed(seed + C + H)
+
+    def nhwc():
+        return torch.randn((B, C, H, H), device="cuda", generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    return nhwc(), torch.randn(C, device="cuda", generator=g), (
+        nhwc() if residual else None)
+
+
+def stem_args(B, H, seed=SEED):
+    """stem_pool's seeded arguments: (B, 1, H, H) depth in [-1, 1], a bf16
+    5x5 weight into 64 channels and a float32 bias."""
+    g = torch.Generator("cuda").manual_seed(seed + H)
+    return (torch.rand((B, 1, H, H), device="cuda", generator=g) * 2 - 1,
+            (torch.randn(folded_cuda.STEM_SHAPE, device="cuda", generator=g)
+             * 0.3).to(torch.bfloat16),
+            torch.randn(64, device="cuda", generator=g) * 0.1)
+
+
+def check_folded(B=32):
+    """The inference form's three kernels against their plain versions
+    (on the card) at the shapes of a resnet_18 request (FOLDED_EPILOGUES,
+    FOLDED_HEAD, FOLDED_STEM); returns each kernel's largest error."""
+    errs = {}
+    err = 0.0
+    for C, H, residual, _ in FOLDED_EPILOGUES:
+        y, bias, z = folded_args(B, C, H, residual)
+        want = folded.bias_relu_(y.clone(), bias, z)
+        folded_cuda.bias_relu_cuda(y, bias, z)
+        torch.cuda.synchronize()
+        err = max(err, float((y.float() - want.float()).abs().max()))
+        if not torch.equal(y, want):
+            raise AssertionError(f"bias_relu disagrees at {(B, C, H, H)}, "
+                                 f"residual {residual}")
+    errs["bias_relu"] = err
+    C, F_ = FOLDED_HEAD
+    y, bias, _ = folded_args(B, C, F_, False)
+    got = folded_cuda.head_out_cuda(y, bias)
+    torch.cuda.synchronize()
+    want = folded.head_out(y, bias)
+    errs["head_out"] = float((got - want).abs().max())
+    if not (torch.equal(got, want) and got.is_contiguous()):
+        raise AssertionError(f"head_out disagrees at {(B, C, F_, F_)}")
+    x, w, bias = stem_args(B, FOLDED_STEM)
+    got = folded_cuda.stem_pool_cuda(x, w, bias)
+    torch.cuda.synchronize()
+    want = folded.stem_pool(x, w, bias)
+    gap = (got.float() - want.float()).abs()
+    errs["stem_pool"] = float(gap.max())
+    rec = {"bias_relu_equal": True, "head_out_equal": True,
+           "stem_pool_max_abs_err": errs["stem_pool"],
+           "stem_pool_outputs_differing": int((gap > 0).sum()),
+           "stem_pool_rtol": STEM_RTOL,
+           "epilogue_shapes": [[B, C, H, H, r, n]
+                               for C, H, r, n in FOLDED_EPILOGUES],
+           "head_shape": [B, C, F_, F_], "stem_shape": list(x.shape)}
+    emit({"phase": "kernels", "kernel": "folded", **rec})
+    if not (got.shape == want.shape
+            and got.is_contiguous(memory_format=torch.channels_last)
+            and bool((gap <= want.float().abs() * STEM_RTOL).all())):
+        raise AssertionError(f"stem_pool disagrees: {rec}")
+    return errs
+
+
+def folded_times(bw, flops, bf16_flops, B=256):
+    """The inference form's kernels at the shapes of a B = 256 resnet_18
+    request beside their plain versions and bounds: bias_relu summed
+    over the request's 19 launches; head_out; stem_pool, whose 25-tap
+    conv is bounded by the bf16 tensor cores' rate (its operands are
+    bf16, its sums float32) though it runs on the float32 cores."""
+    per_shape = {}
+    for C, H, residual, count in FOLDED_EPILOGUES:
+        def args(C=C, H=H, residual=residual):
+            return folded_args(B, C, H, residual)
+        n = B * C * H * H
+        # y read and written, the residual read, the bias; two adds and
+        # the max a value (one add fewer without a residual)
+        r = kernel_times(folded_cuda.bias_relu_cuda, folded.bias_relu_, args,
+                         n * (6 if residual else 4) + 4 * C,
+                         n * (3 if residual else 2), bw, flops)
+        r["count"] = count
+        per_shape[f"{C}x{H}x{H}" + ("+residual" if residual else "")] = r
+    epi = {key: sum(r[key] * r["count"] for r in per_shape.values())
+           for key in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
+    epi.update(launches=sum(r["count"] for r in per_shape.values()),
+               bound_by="bytes", shapes=per_shape)
+    C, F_ = FOLDED_HEAD
+
+    def head_args():
+        return folded_args(B, C, F_, False)[:2]
+    n = B * C * F_ * F_
+    head = kernel_times(folded_cuda.head_out_cuda, folded.head_out,
+                        head_args, n * 6 + 4 * C, n, bw, flops)
+
+    def stem():
+        return stem_args(B, FOLDED_STEM)
+    H = FOLDED_STEM
+    Hp = (H + 1) // 2
+    pool = kernel_times(folded_cuda.stem_pool_cuda, folded.stem_pool, stem,
+                        B * H * H * 4 + 2 * 64 * 25 + 4 * 64
+                        + B * 64 * Hp * Hp * 2,
+                        2 * 25 * 64 * B * H * H, bw, bf16_flops)
+    out = {"phase": "time_folded", "batch": B, "bias_relu_request": epi,
+           "head_out": head, "stem_pool": pool}
+    emit(out)
+    return {"bias_relu": epi, "head_out": head, "stem_pool": pool}
 
 
 def decode_windows(F, H, n):
@@ -1907,6 +2051,11 @@ def bf16_serving(cfg, sd, frames, centers, quantize=False):
     if quantize:
         pred.quantize(crops)
         want.update(int8_gemm=20, deconv_int8_bf16=3)
+    elif cfg.net == "resnet_18":
+        # the inference form: 16 block convs and 3 deconvs take bias_relu
+        want.update(stem_pool=1, bias_relu=19, head_out=1)
+    if pred._folded != (cfg.net == "resnet_18" and not quantize):
+        raise AssertionError(f"{name}: inference form {pred._folded}")
     reset_counts()
     outs = {B: pred.predict(frames[:B], centers[:B]) for B in SERVE_BATCHES}
     torch.cuda.synchronize()
@@ -3481,6 +3630,8 @@ def main() -> int:
                                  train, raw, p)
     times.update(phase_time_resnet(pred_r, pred_q, crops, frames, centers,
                                    bw, int8_ops))
+    times.update(folded_times(
+        bw, flops, chip_peaks(torch.cuda.get_device_name(0)).bf16_flops))
     phase_profile("train", train, (raw, p, draw_augment_params(
         torch.Generator("cuda").manual_seed(SEED + 3), TRAIN_BATCH,
         *cfg.augment_para)))

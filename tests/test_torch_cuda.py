@@ -980,3 +980,166 @@ def test_spatial_predictor_on_the_card(cuda, net):
     assert four._bucket(3) == 8
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 if net == "hourglass_1" else 1e-3)
+
+
+# --- the bf16 inference form of the ResNet-deconv (models/inference.py)
+
+FOLDED_SHAPES = [(256, 256, 64, 64), (3, 64, 5, 7), (2, 512, 3, 3),
+                 (1, 8, 1, 1)]
+HEAD_SHAPES = [(256, 56, 64, 64), (3, 56, 5, 7), (2, 84, 9, 9),
+               (1, 184, 3, 3)]
+STEM_SHAPES = [(256, 128, 128), (3, 37, 50), (2, 17, 9), (1, 1, 1)]
+
+
+def bf16_nhwc(cuda, shape, seed):
+    g = torch.Generator(cuda).manual_seed(seed)
+    return torch.randn(shape, device=cuda, generator=g).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("shape", FOLDED_SHAPES)
+def test_bias_relu_kernel_matches_plain(cuda, shape, residual):
+    """relu(y + bias + residual) in place, float32 then one rounding: the
+    kernel, through its op, bit-equal to the plain version (the same
+    float32 sum)."""
+    from awr_tpu_torch.ops import folded, folded_cuda, library
+
+    y = bf16_nhwc(cuda, shape, 1)
+    z = bf16_nhwc(cuda, shape, 2) if residual else None
+    bias = torch.randn(shape[1], device=cuda)
+    want = folded.bias_relu_(y.cpu(), bias.cpu(),
+                             None if z is None else z.cpu())
+    before = folded_cuda.BIAS_RELU_LAUNCHES
+    got = library.bias_relu_(y, bias, z)
+    assert folded_cuda.BIAS_RELU_LAUNCHES == before + 1
+    assert got.data_ptr() == y.data_ptr()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("shape", HEAD_SHAPES)
+def test_head_out_kernel_matches_plain(cuda, shape):
+    """The heads' channels-last bf16 output + bias as a float32 NCHW map:
+    bit-equal to the plain version (one float32 add)."""
+    from awr_tpu_torch.ops import folded, folded_cuda, library
+
+    y = bf16_nhwc(cuda, shape, 3)
+    bias = torch.randn(shape[1], device=cuda)
+    before = folded_cuda.HEAD_OUT_LAUNCHES
+    got = library.head_out(y, bias)
+    assert folded_cuda.HEAD_OUT_LAUNCHES == before + 1
+    assert got.is_contiguous() and got.dtype == torch.float32
+    assert torch.equal(got.cpu(), folded.head_out(y.cpu(), bias.cpu()))
+
+
+@pytest.mark.parametrize("B,H,W", STEM_SHAPES)
+def test_stem_pool_kernel_matches_plain(cuda, B, H, W):
+    """The stem's 5x5 conv of the bf16-rounded depth, bias, ReLU and the
+    3x3 / 2 max-pool against the plain version on the CPU (a float32 conv
+    of the same bf16 values): equal, or one bf16 step apart where the two
+    float32 sums, in other orders, round to either side of a bf16
+    boundary (none did at these shapes on the H100)."""
+    from awr_tpu_torch.ops import folded, folded_cuda, library
+
+    g = torch.Generator(cuda).manual_seed(B * H + W)
+    x = torch.rand((B, 1, H, W), device=cuda, generator=g) * 2 - 1
+    w = (torch.randn(folded_cuda.STEM_SHAPE, device=cuda, generator=g)
+         * 0.3).to(torch.bfloat16)
+    bias = torch.randn(64, device=cuda, generator=g) * 0.1
+    before = folded_cuda.STEM_POOL_LAUNCHES
+    got = library.stem_pool(x, w, bias)
+    assert folded_cuda.STEM_POOL_LAUNCHES == before + 1
+    want = folded.stem_pool(x.cpu(), w.cpu(), bias.cpu())
+    assert got.shape == want.shape == (B, 64, (H + 1) // 2, (W + 1) // 2)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    gap = (got.cpu().float() - want.float()).abs()
+    assert bool((gap <= want.float().abs() * 2.0 ** -7).all())
+
+
+def folded_resnet_predictors(cuda):
+    """resnet_18 at img 128 with seeded weights and BatchNorm statistics:
+    a bf16 Predictor (the form), one on the module path, and float32."""
+    from awr_tpu_torch.training.steps import make_infer_step
+
+    cfg = resnet_config(img_size=128, compute_dtype="bfloat16")
+    model = torch_default_init_(build_model(cfg.net, cfg.jt_num,
+                                            cfg.downsample),
+                                torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                n = m.num_features
+                m.weight.copy_(1 + 0.2 * torch.randn(n, generator=g))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.copy_(0.5 + torch.rand(n, generator=g))
+    form = Predictor(cfg, model, device=cuda)
+    module = Predictor(cfg, form.model.state_dict(), device=cuda)
+    module._infer, module._folded = make_infer_step(module.model, cfg), False
+    fp32 = Predictor(resnet_config(img_size=128), form.model.state_dict(),
+                     device=cuda)
+    return form, module, fp32
+
+
+def test_folded_resnet_at_b256_against_module_and_float32(cuda):
+    """The batch cell's forward, resnet_18 bf16 at B = 256: the form's
+    normalized joints against the module path's and float32's on the
+    same weights.  Bounds: the form's RMS distance to float32 within
+    twice the module path's (the 2x rule of the bf16 CPU tests), and
+    every joint within 0.05 of float32 (chip_smoke.py's bf16 bar; the
+    form read 5.7e-4 and the module path 5.7e-4 on the H100)."""
+    from awr_tpu_torch.ops import folded_cuda as folded
+
+    form, module, fp32 = folded_resnet_predictors(cuda)
+    assert form._folded
+    crop = np.random.RandomState(0).uniform(-1, 1, (256, 128, 128)).astype(
+        np.float32)
+    crop[:, :16] = 1.0  # background rows for the decode's mask
+    before = (folded.STEM_POOL_LAUNCHES, folded.BIAS_RELU_LAUNCHES,
+              folded.HEAD_OUT_LAUNCHES, decode_cuda.LAUNCHES)
+    jf = form.predict_normalized(crop)
+    assert [b - a for a, b in zip(before, (
+        folded.STEM_POOL_LAUNCHES, folded.BIAS_RELU_LAUNCHES,
+        folded.HEAD_OUT_LAUNCHES, decode_cuda.LAUNCHES))] == [1, 19, 1, 1]
+    jm, j32 = module.predict_normalized(crop), fp32.predict_normalized(crop)
+    rms = lambda a, b: float(np.sqrt(np.mean((a - b) ** 2)))  # noqa: E731
+    assert rms(jf, j32) <= 2 * rms(jm, j32)
+    assert np.abs(jf - j32).max() < 0.05
+    assert form.n_folded_frames == 256 and module.n_folded_frames == 0
+
+
+def test_folded_resnet_call_profile(cuda):
+    """One call of the batch cell (256 raw 480x640 frames) under
+    ``torch.profiler``: no BatchNorm transform and no cuDNN NHWC/NCHW
+    transpose runs, one decode launches, and the call runs 133 kernels
+    besides its copies and memsets (on the H100; the module path ran 330
+    with its copies and memsets): 1
+    stem_pool, 19 bias_relu (16 3x3 convs, 3 deconvs), 1 head_out, 23 cuDNN
+    convs (16 3x3, 3 downsamples, 3 deconvs, the heads), the decode, and
+    the crop's and de-normalization's own kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from awr_tpu_torch.data.synthetic import synthetic_frames
+
+    form = folded_resnet_predictors(cuda)[0]
+    imgs, _, centers = synthetic_frames(16, 14, seed=0)
+    imgs, centers = np.tile(imgs, (16, 1, 1)), np.tile(centers, (16, 1))
+    form.predict(imgs, centers)  # warm: cuDNN's plans, the kernels' builds
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        form.predict(imgs, centers)
+        torch.cuda.synchronize()
+    import collections
+
+    names = collections.Counter(
+        e.name for e in prof.events() if e.device_type.name == "CUDA"
+        and not e.name.startswith(("Memcpy", "Memset")))
+    count = lambda part: sum(n for k, n in names.items()  # noqa: E731
+                             if part in k)
+    for banned in ("batch_norm_transform_input", "nchwToNhwc", "nhwcToNchw"):
+        assert count(banned) == 0, names
+    assert [count(k) for k in ("decode_kernel", "stem_pool_kernel",
+                               "bias_relu_kernel", "head_out_kernel")] == [
+        1, 1, 19, 1], names
+    assert sum(names.values()) == 133, names

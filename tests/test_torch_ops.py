@@ -28,7 +28,7 @@ from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.geometry import uvd2xyz_np, xyz2uvd_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
-from awr_tpu_torch.ops import decode, decode_cuda, encode_cuda, library
+from awr_tpu_torch.ops import decode, decode_cuda, encode_cuda, folded, library
 from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
@@ -401,8 +401,9 @@ def _opcheck_cases():
     """Each op at small shapes through its CPU implementation: the
     decode with a float32 and a bfloat16 map (and a map that requires a
     gradient, which reaches the autograd registration), its backward,
-    the encode, the int8 GEMM, and the deconv writing float32 and
-    bfloat16."""
+    the encode, the int8 GEMM, the deconv writing float32 and bfloat16,
+    and the bf16 inference form's three passes (the epilogue with and
+    without a residual, the heads' conversion, the stem)."""
     g = torch.Generator().manual_seed(0)
     off = torch.randn(2, 56, 8, 8, generator=g) * 0.3
     img = torch.rand(2, 16, 16, generator=g) * 2 - 1
@@ -416,6 +417,11 @@ def _opcheck_cases():
     wq = torch.randint(-127, 128, (16, 8, 4, 4), generator=g,
                        dtype=torch.int8)
     scale = torch.rand(8, generator=g) * 1e-3
+    y, z = (torch.randn(2, 16, 5, 3, generator=g).bfloat16().contiguous(
+        memory_format=torch.channels_last) for _ in range(2))
+    bias = torch.randn(16, generator=g)
+    depth = torch.rand(2, 1, 9, 7, generator=g) * 2 - 1
+    stem = (torch.randn(64, 1, 5, 5, generator=g) * 0.3).bfloat16()
     return {
         "decode_f32": (library.decode, (off, img, 0.4)),
         "decode_bf16": (library.decode, (off.bfloat16(), img, 0.4)),
@@ -430,6 +436,12 @@ def _opcheck_cases():
                        (xq, wq, scale, torch.float32)),
         "deconv_bf16": (library.deconv4x4s2_int8,
                         (xq, wq, scale, torch.bfloat16)),
+        "bias_relu": (torch.ops.awr_tpu_torch.bias_relu_.default,
+                      (y, bias, None)),
+        "bias_relu_residual": (torch.ops.awr_tpu_torch.bias_relu_.default,
+                               (y, bias, z)),
+        "head_out": (library.head_out, (y, bias)),
+        "stem_pool": (library.stem_pool, (depth, stem, bias.repeat(4))),
     }
 
 
@@ -449,6 +461,14 @@ def test_ops_give_the_plain_versions():
     jt, img, k, f = c["encode"][1]
     assert torch.equal(library.encode(jt, img, k, f),
                        joint2offset(jt, img, k, f))
+    _, (y, bias, z) = c["bias_relu_residual"]
+    want = folded.bias_relu_(y.clone(), bias, z)
+    got = y.clone()
+    assert library.bias_relu_(got, bias, z) is got
+    assert torch.equal(got, want)
+    assert torch.equal(library.head_out(y, bias), folded.head_out(y, bias))
+    args = c["stem_pool"][1]
+    assert torch.equal(library.stem_pool(*args), folded.stem_pool(*args))
 
 
 def _random_predictor(net, int8):

@@ -141,10 +141,11 @@ def test_healthz_has_the_jax_keys(servers, frames):
                              "shape": list(imgs[1].shape),
                              "center_xyz": centers[1].tolist()})
     h, hj = _get(ts.port), _get(js.port)
-    # the port reports three keys more (tests/test_torch_tracing.py,
-    # test_healthz_reports_uploaded_share)
+    # the port reports four keys more (tests/test_torch_tracing.py,
+    # test_healthz_reports_uploaded_share,
+    # tests/test_torch_folded_backbone.py)
     assert set(h) == set(hj) | {"padded_share", "uploaded_share",
-                                "queue_wait_ms"}
+                                "folded_share", "queue_wait_ms"}
     assert h["ok"] and h["net"] == "hourglass_1" and h["jt_num"] == 14
     assert h["int8"] is False  # hasattr(predictor, "quant") would say True
     assert h["batch_dispatches"] >= 1 and h["frames"] >= 1
