@@ -13,20 +13,14 @@ failed build of the C++, raises.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 
 from awr_tpu_torch import kernels
+from awr_tpu_torch.kernels import I64, INT, PTR
 from awr_tpu_torch.utils.png import inflate_depth_png
 
-
-def _unfilter_fn():
-    fn = kernels.load("png_unfilter").awr_png_unfilter_depth
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# rows, h, width, bpp, pixels, out
+_UNFILTER = (PTR, I64, I64, INT, PTR, PTR)
 
 
 def unfilter_depth(rows: np.ndarray, width: int, bpp: int, path: str = "",
@@ -46,8 +40,8 @@ def unfilter_depth(rows: np.ndarray, width: int, bpp: int, path: str = "",
             or not out.flags.c_contiguous:
         raise ValueError(f"out must be a contiguous ({h}, {width}) float32 "
                          f"array")
-    bad = _unfilter_fn()(rows.ctypes.data, h, width, bpp,
-                         pixels.ctypes.data, out.ctypes.data)
+    bad = kernels.bind("png_unfilter", "awr_png_unfilter_depth", _UNFILTER)(
+        rows.ctypes.data, h, width, bpp, pixels.ctypes.data, out.ctypes.data)
     if bad:
         raise ValueError(f"{path}: bad filter byte {rows[bad - 1, 0]} on "
                          f"row {bad - 1}")

@@ -26,7 +26,6 @@ so an index clamped into its window never leaves the buffer.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Tuple
 
@@ -34,8 +33,11 @@ import numpy as np
 import torch
 
 from awr_tpu_torch import kernels
+from awr_tpu_torch.kernels import I64, INT, PTR
 
 _INT32_MAX = np.iinfo(np.int32).max
+# imgs, n, strides (3), v0, u0, h, w, base, out, threads
+_PACK = (PTR, I64, I64, I64, I64) + (PTR,) * 6 + (INT,)
 
 
 class Windows(NamedTuple):
@@ -93,12 +95,7 @@ def _packer():
     C++ compiler is found (the numpy loop packs then)."""
     if kernels.host_compiler() is None:
         return None
-    fn = kernels.load("window_pack").awr_pack_windows
-    ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-    fn.argtypes = [ptr, i64, i64, i64, i64, ptr, ptr, ptr, ptr, ptr, ptr,
-                   ctypes.c_int]
-    fn.restype = None
-    return fn
+    return kernels.bind("window_pack", "awr_pack_windows", _PACK, None)
 
 
 def pack_windows(imgs: np.ndarray, win: Windows, out: torch.Tensor) -> None:

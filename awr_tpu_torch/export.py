@@ -14,7 +14,7 @@ the raw extent the device crop and the de-normalization, saved by
 
 **One deviation from the JAX payload.** A StableHLO payload runs with no
 code of the package at all.  A ``torch.export`` program names the port's
-kernels as custom ops (``awr_tpu_torch::decode`` and, for int8,
+kernels as ops (``awr_tpu_torch::decode`` and, for int8,
 ``awr_tpu_torch::int8_matmul`` and ``::deconv4x4s2_int8``), which must be
 registered before it loads.  So :func:`load` imports
 :mod:`awr_tpu_torch.ops.library` (and through it the kernels' wrappers,

@@ -11,10 +11,16 @@ The hash covers the source, for a ``.cu`` every header under ``csrc/``
 A missing compiler or a failed build raises.  Builds are serialized by
 a module lock: the server's dispatcher thread may load a kernel while
 another thread does.  Nothing here runs when the module is imported.
+
+Every call of the built code goes through :func:`bind`, which declares a
+symbol's argument and return types, and a device kernel's launch through
+:func:`launch`, which passes the current stream, raises on a CUDA error
+and counts the launch in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -24,6 +30,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
@@ -36,6 +44,14 @@ HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-pthread")
 # file (it is named by the process), and lru_cache does not serialize the
 # first calls of ``load``
 _LOCK = threading.Lock()
+
+# The argument types of the launchers' signatures.
+PTR, INT, I64, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+
+# Launches of each hand-written kernel, by name, since the count was last
+# cleared (``LAUNCHES.clear()``).
+LAUNCHES = collections.Counter()
 
 
 def _nvcc() -> str:
@@ -123,3 +139,33 @@ def load(name: str) -> ctypes.CDLL:
     if needed."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+@functools.lru_cache(maxsize=None)
+def bind(name: str, symbol: str, argtypes: tuple, restype=INT):
+    """The function ``symbol`` of the built library ``name`` (:func:`load`)
+    with its argument types ``argtypes`` and return type ``restype``
+    declared."""
+    fn = getattr(load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = restype
+    return fn
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` where its base is 16-byte aligned (as a kernel's vector loads
+    and TMA read it), else a copy (a fresh allocation is)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(kernel: str, fn, device: torch.device, *args) -> None:
+    """``fn(*args, stream)`` on ``device`` and its current stream: ``fn``
+    a launcher from :func:`bind` whose last argument is the stream and
+    which returns a CUDA error code.  A nonzero code raises
+    ``RuntimeError`` naming ``kernel``; a launch is counted in
+    ``LAUNCHES[kernel]``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+    LAUNCHES[kernel] += 1

@@ -15,17 +15,10 @@ Both kernels give each (sample, joint) one block.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from awr_tpu_torch import kernels
-
-# Kernel launches made by each wrapper since its count was last reset.
-LAUNCHES = 0
-ROWS_LAUNCHES = 0
-BACKWARD_LAUNCHES = 0
+from awr_tpu_torch.kernels import FLOAT, INT, PTR
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -35,28 +28,12 @@ _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 THREADS = 256
 UNROLL = 2
 
-
-@functools.lru_cache(maxsize=None)
-def _launcher(dtype):
-    fn = getattr(kernels.load("decode"), f"awr_decode_{_DTYPES[dtype]}")
-    # offset, img, out, stats, B, J, F, rows, row0, H, W, img_row0, img_h,
-    # kernel_size, stream
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _backward_launcher(dtype):
-    fn = getattr(kernels.load("decode"),
-                 f"awr_decode_backward_{_DTYPES[dtype]}")
-    # offset, img, out, stats, grad_out, grad, B, J, F, H, W, kernel_size,
-    # stream
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+# offset, img, out, stats, B, J, F, rows, row0, H, W, img_row0, img_h,
+# kernel_size, stream
+_FORWARD = (PTR,) * 4 + (INT,) * 9 + (FLOAT, PTR)
+# offset, img, out, stats, grad_out, grad, B, J, F, H, W, kernel_size,
+# stream
+_BACKWARD = (PTR,) * 6 + (INT,) * 5 + (FLOAT, PTR)
 
 
 def _check_inputs(offset: torch.Tensor, img: torch.Tensor,
@@ -91,33 +68,21 @@ def _check_joint_tensor(name: str, t: torch.Tensor, shape, device) -> None:
                          f"{device}")
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` where its base is 16-byte aligned (as the kernels' vector
-    loads read it), else a copy (a fresh allocation is)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
-def _decode(offset, img, kernel_size, row0, img_row0, H):
-    """Launch the decode on rows [row0, row0 + R) of the map (``offset``
-    (B, 4J, R, F)), the depth rows [img_row0, img_row0 + h) of a (B, H,
-    W) depth given as ``img`` (B, h, W)."""
+def _decode(kernel, offset, img, kernel_size, row0, img_row0, H):
+    """Launch the decode, counted as ``kernel``, on rows [row0, row0 + R)
+    of the map (``offset`` (B, 4J, R, F)), the depth rows [img_row0,
+    img_row0 + h) of a (B, H, W) depth given as ``img`` (B, h, W)."""
     B, C, R, F = offset.shape
     J = C // 4
     h, W = img.shape[1:]
-    offset = _aligned(offset)
+    offset = kernels.aligned(offset)
     out = torch.empty((B, J, 3), dtype=torch.float32, device=offset.device)
     stats = torch.empty((B, J, 2), dtype=torch.float32, device=offset.device)
-    launch = _launcher(offset.dtype)
-    with torch.cuda.device(offset.device):
-        err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
-                     stats.data_ptr(), B, J, F, R, row0, H, W, img_row0, h,
-                     float(kernel_size), _stream(offset.device))
-    if err != 0:
-        raise RuntimeError(f"decode kernel launch failed: CUDA error {err}")
+    fn = kernels.bind("decode", f"awr_decode_{_DTYPES[offset.dtype]}",
+                      _FORWARD)
+    kernels.launch(kernel, fn, offset.device, offset.data_ptr(),
+                   img.data_ptr(), out.data_ptr(), stats.data_ptr(), B, J, F,
+                   R, row0, H, W, img_row0, h, float(kernel_size))
     return out, stats
 
 
@@ -127,11 +92,8 @@ def offset2joint_softmax_cuda(offset: torch.Tensor, img: torch.Tensor,
     contiguous on one CUDA device -> ((B, J, 3) float32 joints, (B, J, 2)
     float32 softmax statistics (max, sum), which
     :func:`offset2joint_softmax_backward_cuda` takes)."""
-    global LAUNCHES
     _check_inputs(offset, img)
-    result = _decode(offset, img, kernel_size, 0, 0, img.shape[1])
-    LAUNCHES += 1
-    return result
+    return _decode("decode", offset, img, kernel_size, 0, 0, img.shape[1])
 
 
 def offset2joint_softmax_rows_cuda(offset: torch.Tensor, img: torch.Tensor,
@@ -144,7 +106,6 @@ def offset2joint_softmax_rows_cuda(offset: torch.Tensor, img: torch.Tensor,
     img_row0 + h) of its (B, ``img_rows``, W) depth, both contiguous on
     one CUDA device -> ((B, J, 3) joints, (B, J, 2) statistics (max,
     sum)) of the window, float32."""
-    global ROWS_LAUNCHES
     _check_inputs(offset, img, window=True)
     R, F = offset.shape[2:]
     h = img.shape[1]
@@ -154,10 +115,8 @@ def offset2joint_softmax_rows_cuda(offset: torch.Tensor, img: torch.Tensor,
         raise ValueError(f"decode window: map rows [{row0}, {row0 + R}) of "
                          f"{F} read depth rows [{first}, {last}], not all "
                          f"in the {h} given from {img_row0} of {img_rows}")
-    result = _decode(offset, img, kernel_size, int(row0), int(img_row0),
-                     int(img_rows))
-    ROWS_LAUNCHES += 1
-    return result
+    return _decode("decode_rows", offset, img, kernel_size, int(row0),
+                   int(img_row0), int(img_rows))
 
 
 def offset2joint_softmax_backward_cuda(offset: torch.Tensor,
@@ -170,7 +129,6 @@ def offset2joint_softmax_backward_cuda(offset: torch.Tensor,
     ``stats`` (both from :func:`offset2joint_softmax_cuda`), and the
     cotangent ``grad_out`` (B, J, 3) float32, all contiguous on one CUDA
     device -> (B, 4J, F, F) in the map's dtype."""
-    global BACKWARD_LAUNCHES
     _check_inputs(offset, img)
     B, C, F, _ = offset.shape
     J = C // 4
@@ -178,16 +136,13 @@ def offset2joint_softmax_backward_cuda(offset: torch.Tensor,
     _check_joint_tensor("out", out, (B, J, 3), offset.device)
     _check_joint_tensor("stats", stats, (B, J, 2), offset.device)
     _check_joint_tensor("grad_out", grad_out, (B, J, 3), offset.device)
-    offset = _aligned(offset)
+    offset = kernels.aligned(offset)
     grad = torch.empty_like(offset)
-    launch = _backward_launcher(offset.dtype)
-    with torch.cuda.device(offset.device):
-        err = launch(offset.data_ptr(), img.data_ptr(), out.data_ptr(),
-                     stats.data_ptr(), grad_out.data_ptr(), grad.data_ptr(),
-                     B, J, F, H, W, float(kernel_size),
-                     _stream(offset.device))
-    if err != 0:
-        raise RuntimeError(f"decode backward kernel launch failed: CUDA "
-                           f"error {err}")
-    BACKWARD_LAUNCHES += 1
+    fn = kernels.bind("decode",
+                      f"awr_decode_backward_{_DTYPES[offset.dtype]}",
+                      _BACKWARD)
+    kernels.launch("decode_backward", fn, offset.device, offset.data_ptr(),
+                   img.data_ptr(), out.data_ptr(), stats.data_ptr(),
+                   grad_out.data_ptr(), grad.data_ptr(), B, J, F, H, W,
+                   float(kernel_size))
     return grad

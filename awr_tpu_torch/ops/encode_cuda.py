@@ -8,32 +8,19 @@ The kernel's library is built and loaded at the first call
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
 from awr_tpu_torch import kernels
+from awr_tpu_torch.kernels import FLOAT, INT, PTR
 
-# Kernel launches made by this wrapper since the count was last reset.
-LAUNCHES = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    fn = kernels.load("encode").awr_encode_f32
-    # jt, img, out, B, J, F, H, W, kernel_size, stream
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+# jt, img, out, B, J, F, H, W, kernel_size, stream
+_ENCODE = (PTR,) * 3 + (INT,) * 5 + (FLOAT, PTR)
 
 
 def joint2offset_cuda(jt_uvd: torch.Tensor, img: torch.Tensor,
                       kernel_size: float, feature_size: int) -> torch.Tensor:
     """(B, J, 3) float32 joints + (B, H, W) float32 depth, both contiguous
     on one CUDA device -> (B, 4J, F, F) float32 GT field."""
-    global LAUNCHES
     if jt_uvd.dtype != torch.float32 or img.dtype != torch.float32:
         raise TypeError(f"encode kernel takes float32 joints and depth, got "
                         f"{jt_uvd.dtype} and {img.dtype}")
@@ -53,12 +40,7 @@ def joint2offset_cuda(jt_uvd: torch.Tensor, img: torch.Tensor,
     F = int(feature_size)
     out = torch.empty((B, 4 * J, F, F), dtype=torch.float32,
                       device=jt_uvd.device)
-    launch = _launcher()
-    with torch.cuda.device(jt_uvd.device):
-        stream = torch.cuda.current_stream(jt_uvd.device).cuda_stream
-        err = launch(jt_uvd.data_ptr(), img.data_ptr(), out.data_ptr(),
-                     B, J, F, H, W, float(kernel_size), stream)
-    if err != 0:
-        raise RuntimeError(f"encode kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    kernels.launch("encode", kernels.bind("encode", "awr_encode_f32", _ENCODE),
+                   jt_uvd.device, jt_uvd.data_ptr(), img.data_ptr(),
+                   out.data_ptr(), B, J, F, H, W, float(kernel_size))
     return out

@@ -11,18 +11,13 @@ every path reaches both through the ops of
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Optional
 
 import torch
 
 from awr_tpu_torch import kernels
-
-# Kernel launches made by each wrapper since its count was last reset.
-BIAS_RELU_LAUNCHES = 0
-HEAD_OUT_LAUNCHES = 0
-STEM_POOL_LAUNCHES = 0
+from awr_tpu_torch.kernels import I64, INT, PTR
 
 # channels a thread of bias_relu takes at once (kVec of csrc/folded.cu);
 # kTile + 1 floats a channel of head_out's tile in 48 KB of shared memory
@@ -31,35 +26,12 @@ HEAD_MAX_CHANNELS = 184
 # the stem the kernel computes: 5x5 taps (pad 2) into 64 channels
 STEM_SHAPE = (64, 1, 5, 5)
 
-
-@functools.lru_cache(maxsize=None)
-def _bias_relu_launcher():
-    fn = kernels.load("folded").awr_bias_relu_bf16
-    # y, bias, z (or NULL), numel, C, SMs, stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _stem_pool_launcher():
-    fn = kernels.load("folded").awr_stem_pool_bf16
-    # x, w, bias, out, B, H, W, stream
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.lru_cache(maxsize=None)
-def _head_out_launcher():
-    fn = kernels.load("folded").awr_head_out_bf16
-    # y, bias, out, B, P, C, stream
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+# y, bias, z (or NULL), numel, C, SMs, stream
+_BIAS_RELU = (PTR,) * 3 + (I64, INT, INT, PTR)
+# x, w, bias, out, B, H, W, stream
+_STEM_POOL = (PTR,) * 4 + (INT,) * 3 + (PTR,)
+# y, bias, out, B, P, C, stream
+_HEAD_OUT = (PTR,) * 3 + (INT,) * 3 + (PTR,)
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,17 +57,12 @@ def _check(y: torch.Tensor, bias: torch.Tensor) -> None:
                          f"device, got {y.device} and {bias.device}")
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def bias_relu_cuda(y: torch.Tensor, bias: torch.Tensor,
                    residual: Optional[torch.Tensor] = None) -> None:
     """relu(y + bias + residual) in place on a channels-last bfloat16
     (B, C, H, W) ``y``, C % 8 == 0, with a float32 (C,) ``bias`` and a
     ``residual`` of ``y``'s shape, dtype and strides, or none: float32
     sums, one rounding."""
-    global BIAS_RELU_LAUNCHES
     _check(y, bias)
     if y.shape[1] % VEC:
         raise ValueError(f"bias_relu kernel takes C % {VEC} == 0, got "
@@ -106,35 +73,26 @@ def bias_relu_cuda(y: torch.Tensor, bias: torch.Tensor,
             or residual.data_ptr() % 16):
         raise ValueError("bias_relu kernel takes a residual of y's shape, "
                          "dtype, device and strides, 16-byte aligned")
-    with torch.cuda.device(y.device):
-        err = _bias_relu_launcher()(
-            y.data_ptr(), bias.data_ptr(),
-            None if residual is None else residual.data_ptr(), y.numel(),
-            y.shape[1], _sms(y.device.index), _stream(y.device))
-    if err != 0:
-        raise RuntimeError(f"bias_relu kernel launch failed: CUDA error "
-                           f"{err}")
-    BIAS_RELU_LAUNCHES += 1
+    kernels.launch(
+        "bias_relu", kernels.bind("folded", "awr_bias_relu_bf16", _BIAS_RELU),
+        y.device, y.data_ptr(), bias.data_ptr(),
+        None if residual is None else residual.data_ptr(), y.numel(),
+        y.shape[1], _sms(y.device.index))
 
 
 def head_out_cuda(y: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     """A channels-last bfloat16 (B, C, H, W) ``y``, C <= 184, + a float32
     (C,) ``bias`` -> a new contiguous float32 (B, C, H, W) tensor."""
-    global HEAD_OUT_LAUNCHES
     _check(y, bias)
     B, C, H, W = y.shape
     if C > HEAD_MAX_CHANNELS:
         raise ValueError(f"head_out kernel takes at most "
                          f"{HEAD_MAX_CHANNELS} channels, got {C}")
     out = torch.empty(y.shape, dtype=bias.dtype, device=y.device)
-    with torch.cuda.device(y.device):
-        err = _head_out_launcher()(y.data_ptr(), bias.data_ptr(),
-                                   out.data_ptr(), B, H * W, C,
-                                   _stream(y.device))
-    if err != 0:
-        raise RuntimeError(f"head_out kernel launch failed: CUDA error "
-                           f"{err}")
-    HEAD_OUT_LAUNCHES += 1
+    kernels.launch(
+        "head_out", kernels.bind("folded", "awr_head_out_bf16", _HEAD_OUT),
+        y.device, y.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H * W,
+        C)
     return out
 
 
@@ -144,7 +102,6 @@ def stem_pool_cuda(x: torch.Tensor, weight: torch.Tensor,
     ``weight``, float32 (64,) ``bias`` -> max_pool(relu(conv(x, weight,
     pad 2) + bias), 3, stride 2, pad 1), (B, 64, ceil(H/2), ceil(W/2))
     bfloat16 channels-last."""
-    global STEM_POOL_LAUNCHES
     if (x.dtype != torch.float32 or weight.dtype != torch.bfloat16
             or bias.dtype != torch.float32):
         raise TypeError(f"stem_pool kernel takes float32 depth, bfloat16 "
@@ -168,12 +125,8 @@ def stem_pool_cuda(x: torch.Tensor, weight: torch.Tensor,
     C = STEM_SHAPE[0]
     out = torch.empty((B, (H + 1) // 2, (W + 1) // 2, C),
                       dtype=weight.dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _stem_pool_launcher()(x.data_ptr(), weight.data_ptr(),
-                                    bias.data_ptr(), out.data_ptr(), B, H, W,
-                                    _stream(x.device))
-    if err != 0:
-        raise RuntimeError(f"stem_pool kernel launch failed: CUDA error "
-                           f"{err}")
-    STEM_POOL_LAUNCHES += 1
+    kernels.launch(
+        "stem_pool", kernels.bind("folded", "awr_stem_pool_bf16", _STEM_POOL),
+        x.device, x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        out.data_ptr(), B, H, W)
     return out.permute(0, 3, 1, 2)

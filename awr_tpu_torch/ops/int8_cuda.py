@@ -11,19 +11,12 @@ launch's tiles from the shapes alone, on the host.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
 from awr_tpu_torch import kernels
-
-# Kernel launches made by each wrapper since its count was last reset
-# (the deconv's by output dtype: float32, bfloat16).
-GEMM_LAUNCHES = 0
-DECONV_LAUNCHES = 0
-DECONV_BF16_LAUNCHES = 0
+from awr_tpu_torch.kernels import INT, PTR
 
 # The tensor-core kernels' fixed tile: 128 rows of A (two warpgroups of
 # 64) and 128 bytes of K a pipeline stage; the GEMM's tile width BN is 64
@@ -38,6 +31,13 @@ SMS = 132
 MIN_SPLIT_STAGES = 4
 # Shared memory a block may use on Hopper.
 SMEM_LIMIT = 232_448
+# a, b^T, c, M, N, K, bn, split, per_split, stream
+_GEMM_TC = (PTR,) * 3 + (INT,) * 6 + (PTR,)
+# a, b^T, c, M, N, K, stream
+_GEMM = (PTR,) * 3 + (INT,) * 3 + (PTR,)
+# x, w, w per phase, scale, out, B, H, W, C_in, C_out, tw, th, tb, bf16,
+# stream
+_DECONV = (PTR,) * 5 + (INT,) * 9 + (PTR,)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -110,29 +110,10 @@ def deconv_plan(B: int, H: int, W: int, c_in: int, c_out: int) -> DeconvPlan:
     return DeconvPlan(tw, th, BM // (tw * th), tc_smem(0))
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher(name: str, n_ptrs: int, n_ints: int):
-    fn = getattr(kernels.load("int8"), name)
-    # pointers, ints, stream
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def library_smem(bn: int) -> int:
     """The built library's dynamic shared memory of a GEMM block at width
     ``bn``, or of a deconv block at 0 (the numbers of :func:`tc_smem`)."""
-    fn = kernels.load("int8").awr_s8_tc_smem
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_int
-    return fn(bn)
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` where its base is 16-byte aligned (as TMA reads it), else a
-    copy (a fresh allocation is)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return kernels.bind("int8", "awr_s8_tc_smem", (INT,))(bn)
 
 
 def _on_one_cuda_device(name, *ts) -> None:
@@ -149,7 +130,6 @@ def int8_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     (N, K) with K contiguous: a ``b`` that is the transposed view of a
     contiguous (N, K) matrix (a conv weight ``w.view(N, K).t()``) is
     passed without a copy; any other ``b`` is copied into that layout."""
-    global GEMM_LAUNCHES
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8 GEMM takes int8 operands, got {a.dtype} and "
                         f"{b.dtype}")
@@ -168,19 +148,14 @@ def int8_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     plan = gemm_plan(M, K, N)
     alloc = torch.zeros if plan.split > 1 else torch.empty
     c = alloc((M, N), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        if plan.path == "wgmma":
-            a, bt = _aligned(a), _aligned(bt)
-            err = _launcher("awr_s8_gemm_tc", 3, 6)(
-                a.data_ptr(), bt.data_ptr(), c.data_ptr(), M, N, K, plan.bn,
-                plan.split, plan.per_split, stream)
-        else:
-            err = _launcher("awr_s8_gemm", 3, 3)(
-                a.data_ptr(), bt.data_ptr(), c.data_ptr(), M, N, K, stream)
-    if err != 0:
-        raise RuntimeError(f"int8 GEMM launch failed: CUDA error {err}")
-    GEMM_LAUNCHES += 1
+    if plan.path == "wgmma":
+        a, bt = kernels.aligned(a), kernels.aligned(bt)
+        fn = kernels.bind("int8", "awr_s8_gemm_tc", _GEMM_TC)
+        tiles = (plan.bn, plan.split, plan.per_split)
+    else:
+        fn, tiles = kernels.bind("int8", "awr_s8_gemm", _GEMM), ()
+    kernels.launch("int8_gemm", fn, a.device, a.data_ptr(), bt.data_ptr(),
+                   c.data_ptr(), M, N, K, *tiles)
     return c
 
 
@@ -193,7 +168,6 @@ def deconv4x4s2_int8_cuda(xq: torch.Tensor, wq: torch.Tensor,
     4) int8 weight and (C_out,) float32 scale -> (B, C_out, 2H, 2W)
     ``out_dtype``, float32 or bfloat16 (the float32 product rounded once
     in the kernel's epilogue).  C_in must be a multiple of 16."""
-    global DECONV_LAUNCHES, DECONV_BF16_LAUNCHES
     if xq.dtype != torch.int8 or wq.dtype != torch.int8 or \
             scale.dtype != torch.float32:
         raise TypeError(f"int8 deconv takes int8 codes and a float32 scale, "
@@ -216,7 +190,7 @@ def deconv4x4s2_int8_cuda(xq: torch.Tensor, wq: torch.Tensor,
     _on_one_cuda_device("int8 deconv", xq, wq, scale)
     if 4 * B * H * W >= 2 ** 31 or 4 * c_in >= 2 ** 31:
         raise ValueError("int8 deconv: shape overflows 32-bit sizes")
-    wq, scale, xq = wq.contiguous(), scale.contiguous(), _aligned(xq)
+    wq, scale, xq = wq.contiguous(), scale.contiguous(), kernels.aligned(xq)
     # the kernel's per-phase weight operands, (4, C_out, 4 C_in), made by
     # the library's first kernel
     wph = torch.empty((4, c_out, 4 * c_in), dtype=torch.int8,
@@ -225,16 +199,9 @@ def deconv4x4s2_int8_cuda(xq: torch.Tensor, wq: torch.Tensor,
     out = torch.empty((B, c_out, 2 * H, 2 * W), dtype=out_dtype,
                       device=xq.device)
     bf16 = out_dtype == torch.bfloat16
-    with torch.cuda.device(xq.device):
-        err = _launcher("awr_s8_deconv", 5, 9)(
-            xq.data_ptr(), wq.data_ptr(), wph.data_ptr(), scale.data_ptr(),
-            out.data_ptr(),
-            B, H, W, c_in, c_out, plan.tw, plan.th, plan.tb, int(bf16),
-            torch.cuda.current_stream(xq.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"int8 deconv launch failed: CUDA error {err}")
-    if bf16:
-        DECONV_BF16_LAUNCHES += 1
-    else:
-        DECONV_LAUNCHES += 1
+    kernels.launch("deconv_int8_bf16" if bf16 else "deconv_int8",
+                   kernels.bind("int8", "awr_s8_deconv", _DECONV), xq.device,
+                   xq.data_ptr(), wq.data_ptr(), wph.data_ptr(),
+                   scale.data_ptr(), out.data_ptr(), B, H, W, c_in, c_out,
+                   plan.tw, plan.th, plan.tb, int(bf16))
     return out

@@ -131,10 +131,10 @@ float32, TF32 off (then bf16, phase ``bf16``):
   Predictor, and the row-window decode's device time (one card: no
   scaling is claimed).
 
-Each path runs with every launch counter set to 0 just before it and is
-checked to have gone through its kernels.  Each phase prints one JSON
-line; then come the kernel summary line, the card's name and power
-limit, and the status line.  Any failure raises and exits non-zero.
+Each path runs with the launch counts (``kernels.LAUNCHES``) cleared
+just before it and is checked to have gone through its kernels.  Each
+phase prints one JSON line; then come the kernel summary line, the
+card's name and power limit, and the status line.  Any failure raises and exits non-zero.
 Without a GPU it exits 1 and prints no result.  Imports torch, numpy and
 the port only.
 """
@@ -199,48 +199,45 @@ from awr_tpu_torch.utils.profiling import chip_peaks
 
 SEED = 0
 KERNEL_SIZE = 0.4
-# Each hand-written kernel on the paths: its wrapper module and launch
-# counter, its source, the TPU kernel (or XLA function) it replaces, and
-# the main path whose launches the summary reports (the Trainer's, for
-# the AWR kernels; the int8 requests', for the int8 ones).
+# Each hand-written kernel on the paths: its name in kernels.LAUNCHES, its
+# source, the TPU kernel (or XLA function) it replaces, and the main path
+# whose launches the summary reports (the Trainer's, for the AWR kernels;
+# the int8 requests', for the int8 ones).
 KERNELS = [
-    dict(name="decode", route="cuda", module=decode_cuda, counter="LAUNCHES",
-         source="awr_tpu_torch/csrc/decode.cu",
+    dict(name="decode", route="cuda", source="awr_tpu_torch/csrc/decode.cu",
          replaces="awr_tpu/ops/pallas_decode.py:69", path="trainer"),
-    dict(name="encode", route="cuda", module=encode_cuda, counter="LAUNCHES",
-         source="awr_tpu_torch/csrc/encode.cu",
+    dict(name="encode", route="cuda", source="awr_tpu_torch/csrc/encode.cu",
          replaces="awr_tpu/ops/pallas_encode.py:40", path="trainer"),
-    dict(name="decode_backward", route="cuda", module=decode_cuda,
-         counter="BACKWARD_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
+    dict(name="decode_backward", route="cuda",
+         source="awr_tpu_torch/csrc/decode.cu",
          replaces="awr_tpu/ops/decode.py:37", path="trainer"),
-    dict(name="int8_gemm", route="cuda", module=int8_cuda,
-         counter="GEMM_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
+    dict(name="int8_gemm", route="cuda", source="awr_tpu_torch/csrc/int8.cu",
          replaces="awr_tpu/ops/pallas_int8.py:190", path="serve_resnet_int8"),
-    dict(name="deconv_int8", route="cuda", module=int8_cuda,
-         counter="DECONV_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
+    dict(name="deconv_int8", route="cuda",
+         source="awr_tpu_torch/csrc/int8.cu",
          replaces="awr_tpu/ops/pallas_int8.py:89", path="serve_resnet_int8"),
     # the same kernel with its bfloat16 epilogue (the Pallas kernel's
     # out_dtype), on the int8 requests under bf16 compute
-    dict(name="deconv_int8_bf16", route="cuda", module=int8_cuda,
-         counter="DECONV_BF16_LAUNCHES", source="awr_tpu_torch/csrc/int8.cu",
+    dict(name="deconv_int8_bf16", route="cuda",
+         source="awr_tpu_torch/csrc/int8.cu",
          replaces="awr_tpu/ops/pallas_int8.py:89",
          path="bf16_serve_resnet_18_int8"),
     # the decode's kernel on a window of map rows: one launch for each
     # band of a spatial request
-    dict(name="decode_rows", route="cuda", module=decode_cuda,
-         counter="ROWS_LAUNCHES", source="awr_tpu_torch/csrc/decode.cu",
+    dict(name="decode_rows", route="cuda",
+         source="awr_tpu_torch/csrc/decode.cu",
          replaces="awr_tpu/ops/pallas_decode.py:69", path="spatial"),
     # the bf16 inference form's passes between its cuDNN convs
     # (models/inference.py), on bf16 resnet_18 requests; on the TPU, XLA
     # fuses this work into the convs of the jitted forward
-    dict(name="stem_pool", route="cuda", module=folded_cuda,
-         counter="STEM_POOL_LAUNCHES", source="awr_tpu_torch/csrc/folded.cu",
+    dict(name="stem_pool", route="cuda",
+         source="awr_tpu_torch/csrc/folded.cu",
          replaces="none (XLA fusion)", path="bf16_serve_resnet_18"),
-    dict(name="bias_relu", route="cuda", module=folded_cuda,
-         counter="BIAS_RELU_LAUNCHES", source="awr_tpu_torch/csrc/folded.cu",
+    dict(name="bias_relu", route="cuda",
+         source="awr_tpu_torch/csrc/folded.cu",
          replaces="none (XLA fusion)", path="bf16_serve_resnet_18"),
-    dict(name="head_out", route="cuda", module=folded_cuda,
-         counter="HEAD_OUT_LAUNCHES", source="awr_tpu_torch/csrc/folded.cu",
+    dict(name="head_out", route="cuda",
+         source="awr_tpu_torch/csrc/folded.cu",
          replaces="none (XLA fusion)", path="bf16_serve_resnet_18"),
 ]
 SOURCES = sorted({k["source"].split("/")[-1][:-3] for k in KERNELS})
@@ -513,12 +510,11 @@ def phase_env():
 
 
 def counts():
-    return {k["name"]: getattr(k["module"], k["counter"]) for k in KERNELS}
+    return {k["name"]: kernels.LAUNCHES[k["name"]] for k in KERNELS}
 
 
 def reset_counts() -> None:
-    for k in KERNELS:
-        setattr(k["module"], k["counter"], 0)
+    kernels.LAUNCHES.clear()
 
 
 def check_launches(path: str, got: dict, want: dict) -> None:
@@ -2945,7 +2941,7 @@ def phase_server(pred, frames, centers):
 
 
 # The export phase's fresh process: argv the directory of programs and
-# inputs, and the launch counters as JSON ([name, module, counter]).  It
+# inputs, and the kernels' names as JSON.  It
 # imports torch, numpy and the loader only; for each program in
 # jobs.json it runs one call (held to the parent's output), reads the
 # counters, then times EXPORT_REPS calls after two warm ones; prints one
@@ -2954,15 +2950,12 @@ EXPORT_CHILD = r"""
 import json, os, sys, time
 import numpy as np
 import torch
-from awr_tpu_torch import export
-root, counters = sys.argv[1], json.loads(sys.argv[2])
+from awr_tpu_torch import export, kernels
+root, names = sys.argv[1], json.loads(sys.argv[2])
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 def counts():
-    return {n: getattr(sys.modules[m], c) for n, m, c in counters}
-def reset():
-    for n, m, c in counters:
-        setattr(sys.modules[m], c, 0)
+    return {n: kernels.LAUNCHES[n] for n in names}
 with open(os.path.join(root, "jobs.json")) as fh:
     jobs = json.load(fh)
 for job in jobs:
@@ -2976,7 +2969,7 @@ for job in jobs:
         args = (inputs["frames"],
                 {k: inputs["crop_" + k] for k in export.CROP_KEYS},
                 inputs["center_z"], inputs["cube_z"])
-    reset()
+    kernels.LAUNCHES.clear()
     got = prog.call(*args).cpu().numpy()
     first = counts()
     def call():
@@ -3062,11 +3055,10 @@ def phase_export(pred, pred_q, frames, centers):
                 "per_call": want}
         with open(os.path.join(tmp, "jobs.json"), "w") as fh:
             json.dump(listing, fh)
-        counters = [[k["name"], k["module"].__name__, k["counter"]]
-                    for k in KERNELS]
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-c", EXPORT_CHILD, tmp, json.dumps(counters)],
+            [sys.executable, "-c", EXPORT_CHILD, tmp,
+             json.dumps([k["name"] for k in KERNELS])],
             cwd=os.path.dirname(os.path.abspath(__file__)),
             capture_output=True, text=True, timeout=900)
         out["child_s"] = time.perf_counter() - t0

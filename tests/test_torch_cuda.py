@@ -13,10 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from awr_tpu_torch import kernels
 from awr_tpu_torch.config import resnet_config
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.common import torch_default_init_
-from awr_tpu_torch.ops import decode_cuda, encode_cuda, int8, int8_cuda
+from awr_tpu_torch.ops import decode_cuda, int8, int8_cuda
 from awr_tpu_torch.ops.decode import decode_offsets
 from awr_tpu_torch.ops.encode import encode_offsets
 from awr_tpu_torch.ops.functional import (joint2offset, offset2joint_softmax,
@@ -45,6 +46,12 @@ ENCODE_SHAPES = [(1, 8), (3, 16), (32, 64)]
 J = 14
 
 
+def launched(before, *names):
+    """Each named kernel's launches since ``before``, a copy of
+    ``kernels.LAUNCHES``."""
+    return [kernels.LAUNCHES[n] - before[n] for n in names]
+
+
 def inputs(cuda, B, F, dtype=torch.float32, H=None, J=J):
     """A seeded (B, 4J, F, F) map, (B, H, H) depth (H = 2F by default)
     with one all-background frame, and (B, J, 3) joints."""
@@ -64,10 +71,10 @@ def inputs(cuda, B, F, dtype=torch.float32, H=None, J=J):
 @pytest.mark.parametrize("B,F,H", SHAPES)
 def test_decode_kernel_matches_plain(cuda, B, F, H, dtype):
     off, img, _ = inputs(cuda, B, F, dtype, H)
-    before = decode_cuda.LAUNCHES
+    before = kernels.LAUNCHES["decode"]
     got = decode_offsets(off, img, 0.4)
     torch.cuda.synchronize()
-    assert decode_cuda.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["decode"] == before + 1
     want = offset2joint_softmax(off.float(), img, 0.4)
     # float32 sums over F*F pixels in another order
     torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
@@ -117,10 +124,10 @@ def test_decode_unaligned_map(cuda):
 @pytest.mark.parametrize("B,F", ENCODE_SHAPES)
 def test_encode_kernel_matches_plain(cuda, B, F):
     _, img, jt = inputs(cuda, B, F)
-    before = encode_cuda.LAUNCHES
+    before = kernels.LAUNCHES["encode"]
     got = encode_offsets(jt, img, 0.4, F)
     torch.cuda.synchronize()
-    assert encode_cuda.LAUNCHES == before + 1
+    assert kernels.LAUNCHES["encode"] == before + 1
     assert got.shape == (B, 4 * J, F, F) and not got.requires_grad
     # the kernel spells every operation as the plain version does, in
     # IEEE float32 without contraction
@@ -143,11 +150,11 @@ def test_decode_backward_kernel_matches_plain(cuda, B, F, H, dtype):
     g = torch.randn(B, J, 3, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(B))
     out, stats = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
-    before = decode_cuda.BACKWARD_LAUNCHES
+    before = kernels.LAUNCHES["decode_backward"]
     got = decode_cuda.offset2joint_softmax_backward_cuda(off, img, out, stats,
                                                          g, 0.4)
     torch.cuda.synchronize()
-    assert decode_cuda.BACKWARD_LAUNCHES == before + 1
+    assert kernels.LAUNCHES["decode_backward"] == before + 1
     want = offset2joint_softmax_backward(off, img, 0.4, g)
     assert got.dtype == dtype and got.shape == off.shape
     atol = BACKWARD_ATOL[dtype] * float(want.float().abs().max())
@@ -164,8 +171,7 @@ def test_kernels_at_icvl_msra_hands17_joint_counts(cuda, joints, B, F, H,
     statistics and backward, and the encode, each one launch, against
     their plain versions at the bars of the J = 14 tests above."""
     off, img, jt = inputs(cuda, B, F, dtype, H, J=joints)
-    before = (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES,
-              encode_cuda.LAUNCHES)
+    before = kernels.LAUNCHES.copy()
     out, stats = decode_cuda.offset2joint_softmax_cuda(off, img, 0.4)
     g = torch.randn(B, joints, 3, device=cuda,
                     generator=torch.Generator(cuda).manual_seed(B))
@@ -173,8 +179,7 @@ def test_kernels_at_icvl_msra_hands17_joint_counts(cuda, joints, B, F, H,
                                                           stats, g, 0.4)
     enc = encode_offsets(jt, img, 0.4, F)
     torch.cuda.synchronize()
-    assert (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES,
-            encode_cuda.LAUNCHES) == tuple(n + 1 for n in before)
+    assert launched(before, "decode", "decode_backward", "encode") == [1, 1, 1]
     assert out.shape == (B, joints, 3) and enc.shape == (B, 4 * joints, F, F)
     torch.testing.assert_close(out, offset2joint_softmax(off.float(), img,
                                                          0.4),
@@ -192,7 +197,7 @@ def test_decode_offsets_has_a_kernel_gradient(cuda):
     statistics the forward saved."""
     off, img, _ = inputs(cuda, 3, 16)
     x = off.clone().requires_grad_()
-    before = (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES)
+    before = kernels.LAUNCHES.copy()
     out = decode_offsets(x, img, 0.4)
     assert out.grad_fn is not None
     saved = out.grad_fn.saved_tensors
@@ -201,14 +206,13 @@ def test_decode_offsets_has_a_kernel_gradient(cuda):
     g = torch.randn_like(out)
     out.backward(g)
     torch.cuda.synchronize()
-    assert (decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
+    assert launched(before, "decode", "decode_backward") == [1, 1]
     want = offset2joint_softmax_backward(off, img, 0.4, g)
     torch.testing.assert_close(x.grad, want, rtol=0,
                                atol=1e-5 * float(want.abs().max()))
     with torch.inference_mode():
         assert decode_offsets(off, img, 0.4).grad_fn is None
-    assert decode_cuda.BACKWARD_LAUNCHES == before[1] + 1
+    assert launched(before, "decode_backward") == [1]
 
 
 def int8_codes(cuda, shape, seed):
@@ -243,10 +247,10 @@ GEMM_SHAPES = [(1000, 25, 64), (333, 40, 24), (4096, 576, 64),
 @pytest.mark.parametrize("M,K,N", GEMM_SHAPES)
 def test_int8_gemm_kernel_matches_plain(cuda, M, K, N):
     a, b = int8_codes(cuda, (M, K), M), int8_codes(cuda, (K, N), K)
-    before = int8_cuda.GEMM_LAUNCHES
+    before = kernels.LAUNCHES["int8_gemm"]
     got = int8_cuda.int8_matmul_cuda(a, b)
     torch.cuda.synchronize()
-    assert int8_cuda.GEMM_LAUNCHES == before + 1
+    assert kernels.LAUNCHES["int8_gemm"] == before + 1
     assert got.dtype == torch.int32 and got.shape == (M, N)
     assert torch.equal(got, int8.int8_matmul(a, b))
     lib = int_mm(a, b)
@@ -306,14 +310,11 @@ def test_int8_deconv_kernel_matches_plain(cuda, B, H, W, cin, cout,
     wq = int8_codes(cuda, (cin, cout, 4, 4), cin)
     scale = torch.empty(cout, device=cuda).uniform_(
         0.5, 2.0, generator=torch.Generator(cuda).manual_seed(cout))
-    counter = ("DECONV_BF16_LAUNCHES" if out_dtype == torch.bfloat16
-               else "DECONV_LAUNCHES")
-    before = (int8_cuda.DECONV_LAUNCHES, int8_cuda.DECONV_BF16_LAUNCHES)
+    before = kernels.LAUNCHES.copy()
     got = int8_cuda.deconv4x4s2_int8_cuda(xq, wq, scale, out_dtype)
     torch.cuda.synchronize()
-    after = (int8_cuda.DECONV_LAUNCHES, int8_cuda.DECONV_BF16_LAUNCHES)
-    assert [a - b for a, b in zip(after, before)] == (
-        [0, 1] if counter == "DECONV_BF16_LAUNCHES" else [1, 0])
+    assert launched(before, "deconv_int8", "deconv_int8_bf16") == (
+        [0, 1] if out_dtype == torch.bfloat16 else [1, 0])
     assert got.shape == (B, cout, 2 * H, 2 * W) and got.dtype == out_dtype
     assert torch.equal(got, int8.deconv4x4s2_int8(xq, wq, scale, out_dtype))
 
@@ -334,15 +335,11 @@ def test_int8_resnet18_request_launches(cuda, compute_dtype):
         np.float32)
     fp = fp32.predict_normalized(img)
     pred.quantize(img)
-    counters = lambda: (int8_cuda.GEMM_LAUNCHES,  # noqa: E731
-                        int8_cuda.DECONV_LAUNCHES,
-                        int8_cuda.DECONV_BF16_LAUNCHES,
-                        decode_cuda.LAUNCHES, encode_cuda.LAUNCHES)
-    before = counters()
+    before = kernels.LAUNCHES.copy()
     q8 = pred.predict_normalized(img)
-    after = counters()
     deconvs = [0, 3] if compute_dtype == "bfloat16" else [3, 0]
-    assert [y - x for x, y in zip(before, after)] == [20, *deconvs, 1, 0]
+    assert launched(before, "int8_gemm", "deconv_int8", "deconv_int8_bf16",
+                    "decode", "encode") == [20, *deconvs, 1, 0]
     assert np.isfinite(q8).all() and np.abs(q8 - fp).max() < 0.05
 
 
@@ -474,14 +471,10 @@ def hourglass_8_step_gaps(cuda, B=4, seed=2 ** 31 + 11):
                jt_xyz=torch.from_numpy(pool.joints[:B]).float().to(cuda),
                centers_uvd=torch.from_numpy(centers_uvd).float().to(cuda),
                cubes=torch.from_numpy(cubes).float().to(cuda))
-    def counters():
-        return (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
-                decode_cuda.BACKWARD_LAUNCHES)
-
-    before = counters()
+    before = kernels.LAUNCHES.copy()
     got = step(raw, crop_param_tensors(centers_uvd, cubes, pool.paras, S,
                                        cuda), aug)
-    launches = [b - a for a, b in zip(before, counters())]
+    launches = launched(before, "encode", "decode", "decode_backward")
 
     ref = weights.reference_model(cfg, state, cuda)
     ref_img, jt_uvd = data.train_batch(img, pool.joints[:B],
@@ -531,13 +524,10 @@ def test_trainer_epoch_on_the_card(cuda, tmp_path):
                  SyntheticHandDataset(4, J, 32, phase="test", seed=1,
                                       mode="raw"),
                  workdir=str(tmp_path), device="cuda")
-    before = (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
-              decode_cuda.BACKWARD_LAUNCHES)
+    before = kernels.LAUNCHES.copy()
     tr.train()
     tr.close()
-    after = (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES,
-             decode_cuda.BACKWARD_LAUNCHES)
-    assert [a - b for a, b in zip(after, before)] == [3, 3, 2]
+    assert launched(before, "encode", "decode", "decode_backward") == [3, 3, 2]
     assert (tmp_path / "ckpt" / "1.pth").exists()
     assert tr.best_records["epoch"] == 1
     assert np.isfinite(tr.best_records["MPE"])
@@ -565,12 +555,9 @@ def test_int8_hourglass_request_launches(cuda, compute_dtype):
         np.float32)
     fp = fp32.predict_normalized(img)
     pred.quantize(img)
-    before = (int8_cuda.GEMM_LAUNCHES, decode_cuda.LAUNCHES,
-              encode_cuda.LAUNCHES)
+    before = kernels.LAUNCHES.copy()
     q8 = pred.predict_normalized(img)
-    after = (int8_cuda.GEMM_LAUNCHES, decode_cuda.LAUNCHES,
-             encode_cuda.LAUNCHES)
-    assert [y - x for x, y in zip(before, after)] == [55, 1, 0]
+    assert launched(before, "int8_gemm", "decode", "encode") == [55, 1, 0]
     with torch.no_grad():
         maps = pred.model(torch.from_numpy(img).to(cuda)[:, None])
     assert maps.is_contiguous()
@@ -607,17 +594,14 @@ def test_qat_on_the_card(cuda, net):
     layers = pred.quant
     gemms = 55 if net.startswith("hourglass") else 20
     deconvs = len(layers) - gemms
-    counters = lambda: (int8_cuda.GEMM_LAUNCHES,  # noqa: E731
-                        int8_cuda.DECONV_LAUNCHES, encode_cuda.LAUNCHES,
-                        decode_cuda.LAUNCHES, decode_cuda.BACKWARD_LAUNCHES)
     holdout = {"img": tune["img"], "jt_uvd": pred.predict_normalized(
         tune["img"])}
-    before = counters()
+    before = kernels.LAUNCHES.copy()
     losses = pred.quantize_qat([tune], steps=3, lr=1e-5,
                                holdout_batches=[holdout])
-    after = counters()
-    assert [y - x for x, y in zip(before, after)] == [
-        2 * gemms, 2 * deconvs, 3 + 2, 3 + 2, 3]
+    assert launched(before, "int8_gemm", "deconv_int8", "encode", "decode",
+                    "decode_backward") == [2 * gemms, 2 * deconvs, 3 + 2,
+                                           3 + 2, 3]
     assert np.isfinite(losses).all()
 
     sd = {k: v.clone() for k, v in pred.model.state_dict().items()}
@@ -826,18 +810,16 @@ def test_exported_program_runs_the_kernels(cuda, tmp_path, net):
                                     torch.Generator().manual_seed(0))
         pred = Predictor(cfg, model, device=cuda)
         pred.quantize(img)
-    counters = lambda: (decode_cuda.LAUNCHES,  # noqa: E731
-                        int8_cuda.GEMM_LAUNCHES, int8_cuda.DECONV_LAUNCHES,
-                        encode_cuda.LAUNCHES)
+    kinds = ("decode", "int8_gemm", "deconv_int8", "encode")
     want = pred.predict_normalized(img)
-    before = counters()
+    before = kernels.LAUNCHES.copy()
     pred.export_program(8, str(tmp_path / "program.pt2"))
-    assert counters() == before
+    assert launched(before, *kinds) == [0, 0, 0, 0]
     prog = export.load(str(tmp_path / "program.pt2"))
     got = prog.call(img)
     torch.cuda.synchronize()
     per_call = [1, 0, 0, 0] if net == "hourglass_1" else [1, 20, 3, 0]
-    assert [y - x for x, y in zip(before, counters())] == per_call
+    assert launched(before, *kinds) == per_call
     assert got.device.type == "cuda" and got.shape == (8, 14, 3)
     np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-5)
 
@@ -867,13 +849,11 @@ def test_data_mode_predictor_on_two_replicas(cuda, net):
         two.quantize(img)
         for k in one.quant:
             assert torch.equal(one.quant[k], two.quant[k]), k
-    counters = lambda: (decode_cuda.LAUNCHES,  # noqa: E731
-                        int8_cuda.GEMM_LAUNCHES, int8_cuda.DECONV_LAUNCHES)
     want = one.predict_normalized(img)
-    before = counters()
+    before = kernels.LAUNCHES.copy()
     got = two.predict_normalized(img)
     per_replica = [1, 0, 0] if net == "hourglass_1" else [1, 20, 3]
-    assert [y - x for x, y in zip(before, counters())] == [
+    assert launched(before, "decode", "int8_gemm", "deconv_int8") == [
         2 * n for n in per_replica]
     assert two._bucket(12) == 16
     np.testing.assert_allclose(got, want, rtol=0,
@@ -911,11 +891,11 @@ def test_decode_rows_kernel_matches_plain(cuda, B, F, H, dtype):
         for r0, rows, i0, h in band_windows(F, H, n):
             o = off[:, :, r0:r0 + rows].contiguous()
             d = img[:, i0:i0 + h].contiguous()
-            before = decode_cuda.ROWS_LAUNCHES
+            before = kernels.LAUNCHES["decode_rows"]
             got, stats = decode_cuda.offset2joint_softmax_rows_cuda(
                 o, d, 0.4, r0, i0, H)
             torch.cuda.synchronize()
-            assert decode_cuda.ROWS_LAUNCHES == before + 1
+            assert kernels.LAUNCHES["decode_rows"] == before + 1
             want = offset2joint_softmax_rows(o.double(), d.double(), 0.4,
                                              r0, i0, H)[0]
             torch.testing.assert_close(got.double(), want, rtol=0,
@@ -968,15 +948,12 @@ def test_spatial_predictor_on_the_card(cuda, net):
         four.quantize(img)
         for k in one.quant:
             assert torch.equal(one.quant[k], four.quant[k]), k
-    counters = lambda: (decode_cuda.LAUNCHES,  # noqa: E731
-                        decode_cuda.ROWS_LAUNCHES, int8_cuda.GEMM_LAUNCHES,
-                        int8_cuda.DECONV_LAUNCHES)
     want = one.predict_normalized(img)
-    before = counters()
+    before = kernels.LAUNCHES.copy()
     got = four.predict_normalized(img)
     per_band = [0, 1, 0, 0] if net == "hourglass_1" else [0, 1, 20, 3]
-    assert [y - x for x, y in zip(before, counters())] == [
-        4 * n for n in per_band]
+    assert launched(before, "decode", "decode_rows", "int8_gemm",
+                    "deconv_int8") == [4 * n for n in per_band]
     assert four._bucket(3) == 8
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 if net == "hourglass_1" else 1e-3)
@@ -1003,16 +980,16 @@ def test_bias_relu_kernel_matches_plain(cuda, shape, residual):
     """relu(y + bias + residual) in place, float32 then one rounding: the
     kernel, through its op, bit-equal to the plain version (the same
     float32 sum)."""
-    from awr_tpu_torch.ops import folded, folded_cuda, library
+    from awr_tpu_torch.ops import folded, library
 
     y = bf16_nhwc(cuda, shape, 1)
     z = bf16_nhwc(cuda, shape, 2) if residual else None
     bias = torch.randn(shape[1], device=cuda)
     want = folded.bias_relu_(y.cpu(), bias.cpu(),
                              None if z is None else z.cpu())
-    before = folded_cuda.BIAS_RELU_LAUNCHES
+    before = kernels.LAUNCHES["bias_relu"]
     got = library.bias_relu_(y, bias, z)
-    assert folded_cuda.BIAS_RELU_LAUNCHES == before + 1
+    assert kernels.LAUNCHES["bias_relu"] == before + 1
     assert got.data_ptr() == y.data_ptr()
     assert torch.equal(got.cpu(), want)
 
@@ -1021,13 +998,13 @@ def test_bias_relu_kernel_matches_plain(cuda, shape, residual):
 def test_head_out_kernel_matches_plain(cuda, shape):
     """The heads' channels-last bf16 output + bias as a float32 NCHW map:
     bit-equal to the plain version (one float32 add)."""
-    from awr_tpu_torch.ops import folded, folded_cuda, library
+    from awr_tpu_torch.ops import folded, library
 
     y = bf16_nhwc(cuda, shape, 3)
     bias = torch.randn(shape[1], device=cuda)
-    before = folded_cuda.HEAD_OUT_LAUNCHES
+    before = kernels.LAUNCHES["head_out"]
     got = library.head_out(y, bias)
-    assert folded_cuda.HEAD_OUT_LAUNCHES == before + 1
+    assert kernels.LAUNCHES["head_out"] == before + 1
     assert got.is_contiguous() and got.dtype == torch.float32
     assert torch.equal(got.cpu(), folded.head_out(y.cpu(), bias.cpu()))
 
@@ -1046,9 +1023,9 @@ def test_stem_pool_kernel_matches_plain(cuda, B, H, W):
     w = (torch.randn(folded_cuda.STEM_SHAPE, device=cuda, generator=g)
          * 0.3).to(torch.bfloat16)
     bias = torch.randn(64, device=cuda, generator=g) * 0.1
-    before = folded_cuda.STEM_POOL_LAUNCHES
+    before = kernels.LAUNCHES["stem_pool"]
     got = library.stem_pool(x, w, bias)
-    assert folded_cuda.STEM_POOL_LAUNCHES == before + 1
+    assert kernels.LAUNCHES["stem_pool"] == before + 1
     want = folded.stem_pool(x.cpu(), w.cpu(), bias.cpu())
     assert got.shape == want.shape == (B, 64, (H + 1) // 2, (W + 1) // 2)
     assert got.is_contiguous(memory_format=torch.channels_last)
@@ -1089,19 +1066,15 @@ def test_folded_resnet_at_b256_against_module_and_float32(cuda):
     twice the module path's (the 2x rule of the bf16 CPU tests), and
     every joint within 0.05 of float32 (chip_smoke.py's bf16 bar; the
     form read 5.7e-4 and the module path 5.7e-4 on the H100)."""
-    from awr_tpu_torch.ops import folded_cuda as folded
-
     form, module, fp32 = folded_resnet_predictors(cuda)
     assert form._folded
     crop = np.random.RandomState(0).uniform(-1, 1, (256, 128, 128)).astype(
         np.float32)
     crop[:, :16] = 1.0  # background rows for the decode's mask
-    before = (folded.STEM_POOL_LAUNCHES, folded.BIAS_RELU_LAUNCHES,
-              folded.HEAD_OUT_LAUNCHES, decode_cuda.LAUNCHES)
+    before = kernels.LAUNCHES.copy()
     jf = form.predict_normalized(crop)
-    assert [b - a for a, b in zip(before, (
-        folded.STEM_POOL_LAUNCHES, folded.BIAS_RELU_LAUNCHES,
-        folded.HEAD_OUT_LAUNCHES, decode_cuda.LAUNCHES))] == [1, 19, 1, 1]
+    assert launched(before, "stem_pool", "bias_relu", "head_out",
+                    "decode") == [1, 19, 1, 1]
     jm, j32 = module.predict_normalized(crop), fp32.predict_normalized(crop)
     rms = lambda a, b: float(np.sqrt(np.mean((a - b) ** 2)))  # noqa: E731
     assert rms(jf, j32) <= 2 * rms(jm, j32)

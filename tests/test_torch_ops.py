@@ -21,6 +21,7 @@ from awr_tpu.ops.functional import SOFTMAX_TEMP as JAX_SOFTMAX_TEMP
 from awr_tpu.ops.functional import resize_nearest as jax_resize
 from awr_tpu.ops.pallas_decode import decode_pallas
 from awr_tpu.ops.pallas_encode import encode_pallas
+from awr_tpu_torch import kernels
 from awr_tpu_torch.config import NYU_PARAS, hourglass_config, resnet_config
 from awr_tpu_torch.data.device import crop_normalize_batch
 from awr_tpu_torch.data.synthetic import render_hand_depth, synthetic_frames
@@ -85,9 +86,9 @@ def test_decode_matches_pallas_interpret(F, frame):
 def test_decode_dispatch_runs_plain_on_cpu():
     off, img = decode_inputs(8, "mixed")
     off_t = torch.from_numpy(np.ascontiguousarray(off.transpose(0, 3, 1, 2)))
-    before = decode_cuda.LAUNCHES
+    before = kernels.LAUNCHES["decode"]
     got = decode_offsets(off_t, torch.from_numpy(img), KERNEL)
-    assert decode_cuda.LAUNCHES == before
+    assert kernels.LAUNCHES["decode"] == before
     np.testing.assert_array_equal(got.numpy(), port_decode(off, img))
 
 
@@ -117,10 +118,10 @@ def test_decode_bf16_map_is_decoded_in_float32():
      ValueError, "contiguous"),
 ])
 def test_kernel_wrapper_refuses(offset, img, error, match):
-    before = decode_cuda.LAUNCHES
+    before = kernels.LAUNCHES["decode"]
     with pytest.raises(error, match=match):
         decode_cuda.offset2joint_softmax_cuda(offset, img, KERNEL)
-    assert decode_cuda.LAUNCHES == before
+    assert kernels.LAUNCHES["decode"] == before
 
 
 def encode_inputs(F, frame, seed=0):
@@ -158,9 +159,9 @@ def test_encode_matches_pallas_interpret(F, frame):
 def test_encode_dispatch_runs_plain_on_cpu():
     jt, img = encode_inputs(8, "mixed")
     jt_t = torch.from_numpy(jt).requires_grad_()
-    before = encode_cuda.LAUNCHES
+    before = kernels.LAUNCHES["encode"]
     got = encode_offsets(jt_t, torch.from_numpy(img), KERNEL, 8)
-    assert encode_cuda.LAUNCHES == before
+    assert kernels.LAUNCHES["encode"] == before
     assert not got.requires_grad  # a target: no gradient, as stop_gradient
     np.testing.assert_array_equal(got.numpy().transpose(0, 2, 3, 1),
                                   port_encode(jt, img, 8))
@@ -179,10 +180,10 @@ def test_encode_dispatch_runs_plain_on_cpu():
      ValueError, "contiguous"),
 ])
 def test_encode_wrapper_refuses(jt, img, error, match):
-    before = encode_cuda.LAUNCHES
+    before = kernels.LAUNCHES["encode"]
     with pytest.raises(error, match=match):
         encode_cuda.joint2offset_cuda(jt, img, KERNEL, 8)
-    assert encode_cuda.LAUNCHES == before
+    assert kernels.LAUNCHES["encode"] == before
 
 
 def jax_decode_vjp(off_nhwc, img, g):

@@ -30,13 +30,13 @@ from awr_tpu.training.steps import make_eval_step as jax_make_eval_step
 from awr_tpu.training.steps import make_raw_eval_step as jax_make_raw_eval
 from awr_tpu.training.steps import make_raw_train_step as jax_make_raw_train
 from awr_tpu.training.steps import make_train_step as jax_make_train_step
+from awr_tpu_torch import kernels
 from awr_tpu_torch.config import NYU_PARAS, hourglass_config
 from awr_tpu_torch.data.device import crop_param_tensors
 from awr_tpu_torch.data.transforms import crop_params_np
 from awr_tpu_torch.geometry import uvd2xyz_np
 from awr_tpu_torch.models import build_model
 from awr_tpu_torch.models.weights import load_flax_variables
-from awr_tpu_torch.ops import decode_cuda, encode_cuda
 from awr_tpu_torch.ops.loss import smooth_l1_loss
 from awr_tpu_torch.training import optim
 from awr_tpu_torch.training.steps import (make_eval_step, make_raw_eval_step,
@@ -375,13 +375,13 @@ def test_raw_eval_step_matches_jax():
         variables["params"], variables["batch_stats"], raw_j,
         {k: jnp.asarray(v) for k, v in p_np.items()})
     raw_t, _, _ = raw_inputs(torch.from_numpy)
-    before = (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES)
+    before = (kernels.LAUNCHES["encode"], kernels.LAUNCHES["decode"])
     got = make_raw_eval_step(
         port_model(1, variables, torch.float32),
         hourglass_config(img_size=IMG, coord_weight=1.0), NYU_PARAS, -1)(
             raw_t, crop_param_tensors(centers_uvd, cubes, NYU_PARAS, IMG,
                                       "cpu"))
-    assert (encode_cuda.LAUNCHES, decode_cuda.LAUNCHES) == before
+    assert (kernels.LAUNCHES["encode"], kernels.LAUNCHES["decode"]) == before
     for k in ("img", "jt_uvd", "M"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]),
                                       err_msg=k)
